@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. the card's name and power limit; build every CUDA kernel from
+     ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a;
+  2. each kernel against its plain PyTorch version on the card, at the
+     serving path's shapes (tinyllama-1.1b full width: token row 11264,
+     chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit, K4 within
+     the bf16 (3e-2, and one bf16 ulp) and fp32 (2e-4) tolerances; median
+     times (CUDA events): each kernel's and library call's device time
+     (CUDA-graph replay), the eager wrapper call and the eager plain
+     version, and each kernel's bound (the larger of its bytes at
+     3.35 TB/s and its fp32 ops at 67 TFLOP/s);
+  3. the main path: ``ServingCluster`` serving full-width, full-depth
+     tinyllama-1.1b (random bf16 weights from a seeded generator) on the
+     card -- 8 requests sharing a 64-token system prompt -- with every
+     kernel's launch count set to 0 before and read after; then the path
+     again, warm, timed plain and then under ``torch.profiler`` (device
+     busy/idle share, time by kernel and kind, host time by operator);
+  4. the same requests at full width and 2 layers on the card and on the
+     CPU (the plain versions, by the caller's explicit device="cpu"):
+     identical integer coherence counters, first-tick logits within the
+     bf16 tolerance, greedy-token agreement printed;
+  5. the kernel JSON line, then the result line.
+Imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16 = dict(rtol=3e-2, atol=3e-2)
+BF16_ULP = dict(rtol=2 ** -7, atol=1e-5)  # one bf16 rounding step apart
+FP32 = dict(rtol=2e-4, atol=2e-4)
+SEED = 0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def median_ms(fn, iters=20, reps=7):
+    """Median over ``reps`` of the mean time of ``iters`` back-to-back
+    calls, timed with CUDA events after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def graph_ms(fn, iters=20, reps=7):
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the wrapper's Python and launch overhead drop out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return median_ms(graph.replay, iters=1, reps=reps) / iters
+
+
+def timings(kernel, plain, library=None):
+    """ms: the kernel's device time (graph replay); call_ms: one eager
+    wrapper call, host overhead included; plain_ms: the plain version,
+    eager; library_ms: the library call's device time (graph replay)."""
+    return dict(ms=graph_ms(kernel), call_ms=median_ms(kernel),
+                plain_ms=median_ms(plain),
+                library_ms=None if library is None else graph_ms(library))
+
+
+def bound(nbytes, nops):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / FP32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def max_err(a, b):
+    import torch
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase1_card_and_build():
+    import torch
+    from repro_torch.kernels import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    lib = _build.build(verbose=True)
+    _build.library()
+    log(f"built {lib.name} from {len(_build.sources())} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return smi
+
+
+def phase2_kernels(rows):
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels.tardis_lease import kernel as K
+    from repro_torch.kernels.tardis_lease import ref as R
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    n_blocks, chunk, token_row, n_layers = 4608, 16, 11264, 22
+    # --- K1 lease_pass: 4608 blocks, a wave of 4 distinct requesters -----
+    n, grp = n_blocks, 4
+    wts = randint(0, 1000, (n,))
+    rts = wts + randint(0, 200, (n,))
+    req = torch.where(randint(0, 2, (n,)) == 1, wts, wts - 1)
+    masks = (randint(0, 8, (grp, n)) == 0).to(torch.int32)
+    pts = randint(0, 1200, (grp,))
+    lvec = randint(16, 512, (n,))
+    err = 0.0
+    for lease in (64, lvec):
+        got = K.lease_pass(wts, rts, req, masks, pts, lease)
+        want = R.lease_pass_ref(wts, rts, req, masks, pts, lease)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), "K1 lease_pass differs from plain"
+            err = max(err, max_err(x, y))
+    nbytes = (3 * n + grp * n + grp) * 4 + (n + grp * n + 1 + grp) * 4
+    rows.append(dict(
+        name="lease_pass", source="src/repro_torch/kernels/tardis_lease/"
+        "csrc/lease_pass.cu", replaces="src/repro/kernels/tardis_lease/"
+        "kernel.py:232", max_abs_err=err, shape=f"N={n} G={grp}",
+        **timings(lambda: K.lease_pass(wts, rts, req, masks, pts, 64),
+                  lambda: R.lease_pass_ref(wts, rts, req, masks, pts, 64)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 12 * grp * n)))))
+    # --- K2 write_advance ---------------------------------------------------
+    mask = masks[0]
+    got = K.write_advance(wts, rts, mask, 500)
+    want = R.write_advance_ref(wts, rts, mask, 500)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), "K2 write_advance differs from plain"
+    nbytes = 3 * n * 4 + (2 * n + 1) * 4
+    rows.append(dict(
+        name="write_advance", source="src/repro_torch/kernels/tardis_lease/"
+        "csrc/write_advance.cu", replaces="src/repro/kernels/tardis_lease/"
+        "kernel.py:208", max_abs_err=0.0, shape=f"N={n}",
+        **timings(lambda: K.write_advance(wts, rts, mask, 500),
+                  lambda: R.write_advance_ref(wts, rts, mask, 500)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 3 * n)))))
+    # --- K3 row_copy: the serving pool, gather of 4 leased blocks ----------
+    pool = torch.randn((n_blocks, chunk * token_row), generator=g,
+                       device=dev).to(torch.bfloat16)
+    bids = randint(0, 4096, (4,))
+    got = K.gather_rows(pool, bids)
+    want = R.gather_rows_ref(pool, bids, 0, pool.shape[1])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+        "K3 gather differs from plain"
+    view = pool.view(n_blocks * chunk, token_row)
+    ridx = randint(0, n_blocks * chunk, (64,))
+    for lo, w in ((0, token_row), (256, 512), (5632, 5632)):   # windows
+        got = K.gather_rows(view, ridx, col_lo=lo, width=w)
+        assert torch.equal(got, R.gather_rows_ref(view, ridx, lo, w)), \
+            f"K3 windowed gather ({lo}, {w}) differs from plain"
+    nbytes = 2 * bids.numel() * pool.shape[1] * 2 + bids.numel() * 4
+    rows.append(dict(
+        name="row_copy.gather", source="src/repro_torch/kernels/"
+        "tardis_lease/csrc/row_copy.cu", replaces="src/repro/kernels/"
+        "tardis_lease/kernel.py:349", max_abs_err=0.0,
+        shape=f"pool {tuple(pool.shape)} bf16, n=4",
+        **timings(lambda: K.gather_rows(pool, bids),
+                  lambda: R.gather_rows_ref(pool, bids, 0, pool.shape[1]),
+                  lambda: torch.index_select(pool, 0, bids)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0)))))
+    # scatter: one decode step's B = 8 token rows; duplicates; a window
+    b = 8
+    tok = torch.randn((b, token_row), generator=g,
+                      device=dev).to(torch.bfloat16)
+    sidx = torch.randperm(n_blocks * chunk, generator=g,
+                          device=dev)[:b].to(torch.int32)
+    dup = torch.tensor([5, 9, 5, 77, 9, 5, 3, 77], dtype=torch.int32,
+                       device=dev)
+    for idx, lo in ((sidx, 0), (dup, 0), (dup, 2560)):
+        w = token_row - lo
+        r = tok[:, :w].contiguous()
+        a = view.clone()
+        c = view.clone()
+        K.scatter_rows(a, idx, r, col_lo=lo)
+        R.scatter_rows_ref(c, idx, r, lo)
+        assert torch.equal(a.view(torch.int16), c.view(torch.int16)), \
+            f"K3 scatter (col_lo={lo}) differs from plain"
+    del a, c
+    nbytes = 2 * b * token_row * 2 + b * 4
+    lib_idx = sidx.long()
+    rows.append(dict(
+        name="row_copy.scatter", source="src/repro_torch/kernels/"
+        "tardis_lease/csrc/row_copy.cu", replaces="src/repro/kernels/"
+        "tardis_lease/kernel.py:314", max_abs_err=0.0,
+        shape=f"pool rows {tuple(view.shape)} bf16, n=8",
+        **timings(lambda: K.scatter_rows(view, sidx, tok),
+                  lambda: R.scatter_rows_ref(view, sidx, tok, 0),
+                  lambda: view.index_copy_(0, lib_idx, tok)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0)))))
+    # --- K4 paged_decode: B=8, P=32, 4 kv heads x 8 query heads, dh 64 ----
+    hkv, grp_q, dh, p_max = 4, 8, 64, 32
+    li = n_layers - 1
+    k_off, v_off = li * hkv * dh, (n_layers + li) * hkv * dh
+    page_rows = randint(0, n_blocks, (b, p_max))
+    lengths = randint(60, 100, (b,))
+    q = torch.randn((b, hkv, grp_q, dh), generator=g, device=dev)
+    ck = torch.randn((b, hkv, dh), generator=g, device=dev)
+    cv = torch.randn((b, hkv, dh), generator=g, device=dev)
+    errs = {}
+    for name, qd, pd, tol in (("bf16", torch.bfloat16, torch.bfloat16, BF16),
+                              ("fp32", torch.float32, torch.float32, FP32)):
+        pv = view if pd == torch.bfloat16 else view.float()
+        args = (q.to(qd), ck.to(pd), cv.to(pd), pv, page_rows, lengths)
+        got = DK.paged_decode(*args, chunk=chunk, k_off=k_off, v_off=v_off)
+        want = paged_decode_attention_ref(
+            args[0].reshape(b, 1, hkv * grp_q, dh),
+            args[1].reshape(b, 1, hkv, dh), args[2].reshape(b, 1, hkv, dh),
+            pv, page_rows, lengths, chunk=chunk, k_off=k_off, v_off=v_off,
+            hkv=hkv).reshape(b, hkv, grp_q, dh)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if pd == torch.bfloat16:
+            # Both sides accumulate in fp32 and round once to bf16, so a
+            # dropped position or a wrong tail tile shows as more than one
+            # rounding step.
+            torch.testing.assert_close(got.float(), want.float(), **BF16_ULP)
+        errs[name] = max_err(got.float(), want.float())
+        del pv
+    log(f"K4 paged_decode max |err|: {errs}")
+    args = (q.to(torch.bfloat16), ck.to(torch.bfloat16),
+            cv.to(torch.bfloat16), view, page_rows, lengths)
+
+    def plain():
+        return paged_decode_attention_ref(
+            args[0].reshape(b, 1, hkv * grp_q, dh),
+            args[1].reshape(b, 1, hkv, dh), args[2].reshape(b, 1, hkv, dh),
+            view, page_rows, lengths, chunk=chunk, k_off=k_off, v_off=v_off,
+            hkv=hkv)
+
+    t_rows = (page_rows.long()[:, :, None] * chunk
+              + torch.arange(chunk, device=dev)).reshape(b, p_max * chunk)
+    kpos = torch.arange(p_max * chunk, device=dev)
+    attn_mask = (kpos[None, :] <= lengths[:, None].long())[:, None, None, :]
+    qs = args[0].reshape(b, hkv * grp_q, 1, dh)
+
+    def library():          # gather + SDPA: a yardstick the port never calls
+        gathered = view[t_rows]
+        kc = gathered[..., k_off:k_off + hkv * dh].reshape(
+            b, -1, hkv, dh).transpose(1, 2)
+        vc = gathered[..., v_off:v_off + hkv * dh].reshape(
+            b, -1, hkv, dh).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=attn_mask, enable_gqa=True)
+
+    # Bytes the function must move: q read and out written, the current
+    # token's K and V, the page-table entries of live pages, lengths, and
+    # the K and V of each pool position below lengths[b].  Operations: a
+    # QK dot and a PV product per (position, query head), the current
+    # token's included.
+    live = int(lengths.sum())
+    pages = int(((lengths + chunk - 1) // chunk).sum())
+    nbytes = (q.numel() * 2 * 2 + 2 * ck.numel() * 2 + pages * 4 + b * 4
+              + 2 * live * hkv * dh * 2)
+    rows.append(dict(
+        name="paged_decode", source="src/repro_torch/kernels/"
+        "decode_attention/csrc/paged_decode.cu", replaces="src/repro/"
+        "kernels/decode_attention/kernel.py:146", max_abs_err=errs["bf16"],
+        shape=f"B={b} P={p_max} Hkv={hkv} G={grp_q} dh={dh} bf16",
+        **timings(lambda: DK.paged_decode(*args, chunk=chunk, k_off=k_off,
+                                          v_off=v_off), plain, library),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, 4 * (live + b) * hkv * grp_q * dh)))))
+    launch_ms = median_ms(lambda: wts.add_(0), iters=50)
+    for r in rows:
+        r["route"] = "cuda"
+        r["launch_ms"] = launch_ms
+        log(f"  {r['name']:17s} {r['ms'] * 1e3:9.2f} us  (eager call "
+            f"{r['call_ms'] * 1e3:8.2f} us)  plain "
+            f"{r['plain_ms'] * 1e3:9.2f} us  bound {r['bound_ms'] * 1e3:8.3f}"
+            f" us ({r['bound_by']})  library "
+            + (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
+               is not None else "-") + f"  [{r['shape']}]")
+    log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us)")
+    del pool, view
+
+
+def _requests(Request, np, vocab, n=8, seed=SEED):
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, 64).astype(np.int32)
+    return [Request(i, np.concatenate(
+        [system, rng.integers(1, vocab, int(rng.integers(4, 17)))
+         .astype(np.int32)]), max_new=16) for i in range(n)]
+
+
+def _serve(cfg, params, dev, n_prefix_blocks, n_decode_pages, trace=False):
+    """One ``ServingCluster.run`` over the smoke's requests.  Returns
+    (cluster, done, report, seconds); on the card the time ends in a
+    device synchronise."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Request, ServingCluster
+    cluster = ServingCluster(cfg, lambda: params, n_replicas=2,
+                             prefix_block_tokens=16,
+                             n_prefix_blocks=n_prefix_blocks,
+                             n_decode_pages=n_decode_pages, max_pages=32,
+                             device=dev)
+    if trace:
+        cluster.trace = []
+    reqs = _requests(Request, np, cfg.vocab)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, report = cluster.run(reqs)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return cluster, done, report, time.perf_counter() - t0
+
+
+def profile_main_path(cfg, params, smi, top=12):
+    """The main path again (warm), timed plain and then under
+    ``torch.profiler``: device busy and idle share over the run, device
+    time by kernel and by kind, and host time by operator."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _c, done, _r, dt = _serve(cfg, params, "cuda", 4096, 512)
+    n_tok = sum(len(r.output) for r in done)
+    log(f"profile: warm main path on {smi}: {n_tok} tokens in {dt:.3f} s "
+        f"= {n_tok / dt:.1f} tokens/s (no profiler)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _c, done, _r, wall = _serve(cfg, params, "cuda", 4096, 512)
+    avgs = prof.key_averages()
+    dev_rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    host_rows = [e for e in avgs if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6   # us->s
+    n_launch = sum(e.count for e in host_rows
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel"))
+    log(f"profile: wall {wall:.3f} s under the profiler, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; {n_launch} kernel "
+        f"launches for {n_tok} tokens")
+    if not dev_rows:
+        log("profile: the profiler showed no device time")
+        return
+    kinds = {}
+    ours = ("lease_pass", "write_ts", "advance_kernel", "gather_kernel",
+            "scatter_kernel", "paged_decode")
+    for e in dev_rows:
+        kind = ("port kernels" if any(k in e.key for k in ours) else
+                "matmul" if any(k in e.key.lower() for k in
+                                ("gemm", "xmma", "nvjet", "cutlass"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log("profile: device ms by kind: "
+        + json.dumps({k: round(v, 3) for k, v in kinds.items()}))
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    for e in sorted(host_rows, key=lambda e: -e.self_cpu_time_total)[:top]:
+        log(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
+def phase3_main_path(smi):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    cfg = get_arch("tinyllama-1.1b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16)
+    reset_launch_counts()
+    cluster, done, report, dt = _serve(cfg, params, "cuda", 4096, 512)
+    counts = launch_counts()
+    n_tok = sum(len(r.output) for r in done)
+    assert all(r.done and len(r.output) == r.max_new for r in done)
+    assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
+    assert bool(torch.isfinite(cluster.prefix_engine._kv_pool).all())
+    assert report["prefix_prefill_tokens_skipped"] > 0, "no prefix hit"
+    log(f"main path on {smi}: tinyllama-1.1b full width ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}), {len(done)} requests served, "
+        f"{n_tok} tokens in {dt:.2f} s = {n_tok / dt:.1f} tokens/s")
+    log(f"coherence_report on {smi}: " + json.dumps(
+        {k: (int(v) if isinstance(v, (int, np.integer)) else v)
+         for k, v in report.items()}))
+    log(f"launches on the main path: {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+    del cluster
+    profile_main_path(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    return counts, n_tok / dt
+
+
+def phase4_card_vs_cpu(smi):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                 [{kk: ({k3: t.to(dev) for k3, t in vv.items()}
+                        if isinstance(vv, dict) else vv.to(dev))
+                   for kk, vv in layer.items()} for layer in v])
+             for k, v in params.items()}
+        cluster, done, report, dt = _serve(cfg, p, dev, 256, 128,
+                                           trace=True)
+        runs[dev] = (done, report, cluster.trace, dt)
+    (dg, rg, tg, sg), (dc, rc, tc, sc) = runs["cuda"], runs["cpu"]
+    ints = [k for k, v in rg.items()
+            if isinstance(v, (int, np.integer)) and not isinstance(v, bool)]
+    bad = {k: (rg[k], rc[k]) for k in ints if rg[k] != rc[k]}
+    assert not bad, f"coherence counters differ card vs cpu: {bad}"
+    first_g = next(e for e in tg if e["ev"] == "tick")
+    first_c = next(e for e in tc if e["ev"] == "tick")
+    np.testing.assert_allclose(first_g["logits"], first_c["logits"], **BF16)
+    err = float(np.abs(first_g["logits"] - first_c["logits"]).max())
+    same = sum(int(a == b) for x, y in zip(dg, dc)
+               for a, b in zip(x.output, y.output))
+    total = sum(len(x.output) for x in dg)
+    log(f"card vs cpu ({smi}; full width, 2 layers): {len(ints)} integer "
+        f"counters identical; first-tick logits max |err| {err:.4g} "
+        f"(bf16 tol 3e-2); greedy tokens agree {same}/{total}; "
+        f"card {sg:.2f} s, cpu {sc:.2f} s")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    smi = phase1_card_and_build()
+    rows = []
+    phase2_kernels(rows)
+    counts, _tps = phase3_main_path(smi)
+    phase4_card_vs_cpu(smi)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "launch_ms", "shape")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

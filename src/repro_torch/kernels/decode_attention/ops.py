@@ -1,0 +1,31 @@
+"""Public wrapper: paged-pool flash decode (the JAX ``ops.py`` contract).
+
+``paged_decode_attention``: (B, 1, H, Dh) query + the LeaseEngine pool's
+(n_rows, token_row) view + per-request page tables / lengths + the current
+token's fresh (k, v) -- KV never leaves its pool pages.
+"""
+from __future__ import annotations
+
+from .kernel import paged_decode
+from .ref import paged_decode_attention_ref
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+
+
+def paged_decode_attention(q, cur_k, cur_v, pool_rows, page_rows, lengths,
+                           *, chunk: int, k_off: int, v_off: int, hkv: int,
+                           pool_off: int = 0):
+    """q: (B, 1, H, Dh); cur_k/cur_v: (B, 1, Hkv, Dh) already RoPE'd;
+    pool_rows: (n_blocks*chunk, token_row); page_rows: (B, P) int32;
+    lengths: (B,) int32.  ``k_off`` / ``v_off`` are the layer's columns
+    inside its stack's segment, ``pool_off`` the segment's offset inside
+    the interleaved token row."""
+    b, _one, h, dh = q.shape
+    g = h // hkv
+    out = paged_decode(
+        q.reshape(b, hkv, g, dh).contiguous(),
+        cur_k.reshape(b, hkv, dh).contiguous(),
+        cur_v.reshape(b, hkv, dh).contiguous(), pool_rows,
+        page_rows, lengths, chunk=chunk, k_off=pool_off + k_off,
+        v_off=pool_off + v_off, scale=dh ** -0.5)
+    return out.reshape(b, 1, h, dh)

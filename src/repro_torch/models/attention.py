@@ -1,0 +1,120 @@
+"""GQA attention: blocked-flash prefill path + cached decode path.
+
+The port of ``repro.models.attention``.  ``flash_attention`` is the plain
+blocked online-softmax schedule (it was plain jnp in the JAX package, not
+Pallas), ``reference_attention`` the naive masked oracle and small-shape
+path, ``decode_attention`` single-token attention over a dense cache --
+reference only in this port (the dense-cache split-K decode kernel of the
+TPU package is not ported yet).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _pad_to(x, mult, dim):
+    s = x.shape[dim]
+    pad = (-s) % mult
+    if pad == 0:
+        return x, 0
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim), pad
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
+                    block_q: int = 512, block_k: int = 1024, kv_len=None):
+    """q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh) -> (B, Sq, H, Dh).
+
+    ``q_offset`` places query i at kv index ``q_offset + i``; ``kv_len``
+    masks cache slots >= kv_len; ``window > 0`` keeps the last ``window``
+    kv positions.  Peak memory is O(block_q x block_k) per head."""
+    b, sq, h, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    g = h // hkv
+    scale = dh ** -0.5
+    block_q = min(block_q, sq)
+    block_k = min(block_k, skv)
+    q, _ = _pad_to(q, block_q, 1)
+    k, _ = _pad_to(k, block_k, 1)
+    v, _ = _pad_to(v, block_k, 1)
+    nq, nk = q.shape[1] // block_q, k.shape[1] // block_k
+    dev = q.device
+    limit = int(kv_len) if kv_len is not None else skv
+    outs = []
+    for iq in range(nq):
+        qi = q[:, iq * block_q:(iq + 1) * block_q].reshape(
+            b, block_q, hkv, g, dh).float()
+        qpos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((b, block_q, hkv, g), NEG_INF, device=dev)
+        l = torch.zeros((b, block_q, hkv, g), device=dev)
+        acc = torch.zeros((b, block_q, hkv, g, dh), device=dev)
+        for ik in range(nk):
+            kj = k[:, ik * block_k:(ik + 1) * block_k].float()
+            vj = v[:, ik * block_k:(ik + 1) * block_k].float()
+            kpos = ik * block_k + torch.arange(block_k, device=dev)
+            s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj) * scale
+            mask = (kpos[None, :] < limit).expand(block_q, block_k)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window:
+                mask = mask & (kpos[None, :] > (qpos[:, None] - window))
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgt,btkd->bqkgd", p, vj)
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.cat(outs, dim=1).reshape(b, nq * block_q, h, dh)
+    return out[:, :sq].to(q.dtype)
+
+
+def reference_attention(q, k, v, *, causal: bool, q_offset=0,
+                        window: int = 0, kv_len=None):
+    """Naive masked attention.  ``kv_len`` is a scalar or a per-request
+    (B,) vector (continuous batching)."""
+    b, sq, h, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    g = h // hkv
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, g, dh)
+    s = torch.einsum("bqkgd,btkd->bqkgt", qg.float(), k.float()) * dh ** -0.5
+    qpos = q_offset + torch.arange(sq, device=dev)
+    kpos = torch.arange(skv, device=dev)
+    mask = torch.ones((1, sq, skv), dtype=torch.bool, device=dev)
+    if kv_len is not None:
+        lim = torch.as_tensor(kv_len, dtype=torch.int32,
+                              device=dev).reshape(-1, 1, 1)
+        mask = mask & (kpos[None, None, :] < lim)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])[None]
+    if window:
+        mask = mask & (kpos[None, :] > (qpos[:, None] - window))[None]
+    s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgt,btkd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cur_len):
+    """Single-token attention over a dense cache: q (B, 1, H, Dh), caches
+    (B, T, Hkv, Dh), ``cur_len`` valid slots (scalar or (B,))."""
+    return reference_attention(q, k_cache, v_cache, causal=False,
+                               kv_len=cur_len)
+
+
+def attend(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
+           kv_len=None, flash_threshold: int = 1024):
+    """Naive for short sequences, blocked flash otherwise (the JAX
+    package's dispatch rule)."""
+    if q.shape[1] * k.shape[1] <= flash_threshold ** 2:
+        return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window, kv_len=kv_len)
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           window=window, kv_len=kv_len)

@@ -1,0 +1,83 @@
+"""Shared neural building blocks (plain functions over parameter dicts).
+
+The port of ``repro.models.layers``: precision-sensitive math (norms,
+activations, rotary angles) runs in fp32 and casts back, at exactly the
+points the JAX package casts, so fp32 outputs agree within the kernels'
+tolerance and bf16 values round at the same places.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x, w, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.float()).to(x.dtype)
+
+
+def dense_init(generator: torch.Generator, shape, dtype,
+               scale: Optional[float] = None):
+    """N(0, 1) * scale (default fan_in ** -0.5), drawn on the generator's
+    device in fp32 and cast."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def swiglu_init(generator, d_model: int, d_ff: int, dtype):
+    return {
+        "w_gate": dense_init(generator, (d_model, d_ff), dtype),
+        "w_up": dense_init(generator, (d_model, d_ff), dtype),
+        "w_down": dense_init(generator, (d_ff, d_model), dtype),
+    }
+
+
+def swiglu(p, x):
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (standard RoPE; M-RoPE broadcasts text positions)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None):
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float, mrope: bool = False):
+    """x: (..., S, H, Dh); positions: (..., S) int32 (or (..., S, 3) for
+    M-RoPE; text-only positions are broadcast to all three sections, so
+    M-RoPE on pure text equals RoPE)."""
+    d_head = x.shape[-1]
+    freqs = rope_freqs(d_head, theta, x.device)           # (Dh/2,)
+    if mrope:
+        if positions.dim() == x.dim() - 2:
+            positions = positions.unsqueeze(-1).expand(
+                *positions.shape, 3)
+        nf = freqs.shape[0]
+        sec = [nf - 2 * (nf // 3), nf // 3, nf // 3]
+        sel = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(sec, device=x.device))
+        pos = torch.gather(positions.float(), -1,
+                           sel.expand(*positions.shape[:-1], nf))
+        angles = pos * freqs
+    else:
+        angles = positions.float().unsqueeze(-1) * freqs
+    cos = torch.cos(angles).unsqueeze(-2)                  # (..., S, 1, Dh/2)
+    sin = torch.sin(angles).unsqueeze(-2)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,208 @@
+"""Dense-family model assembly (the port of ``repro.models.transformer``).
+
+Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,),
+``lm_head`` (D, V) unless tied, and ``layers`` -- a list with one dict per
+layer (``attn`` {wq, wk, wv, wo, norm}, ``mlp`` {w_gate, w_up, w_down},
+``mlp_norm``).  The JAX package stacks layers on a leading axis for
+``lax.scan``; PyTorch runs eagerly, so the port loops over a list
+(:func:`repro_torch.convert.params_from_jax` unstacks).  The JAX package's
+``dist.annotate.replicate`` / ``batch_activations`` sharding hints are
+numerical identities on one device and are dropped here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..configs.base import ArchConfig
+from .attention import attend, decode_attention
+from .layers import apply_rope, dense_init, rmsnorm, swiglu, swiglu_init
+
+Params = Dict[str, Any]
+
+DENSE_FAMILIES = ("dense", "vlm")
+
+
+# ---------------------------------------------------------------------------
+# Attention block (params + apply), GQA + RoPE
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, cfg: ArchConfig, dtype):
+    d, h, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim()
+    return {
+        "wq": dense_init(generator, (d, h * dh), dtype),
+        "wk": dense_init(generator, (d, hk * dh), dtype),
+        "wv": dense_init(generator, (d, hk * dh), dtype),
+        "wo": dense_init(generator, (h * dh, d), dtype),
+        "norm": torch.ones((d,), dtype=dtype, device=generator.device),
+    }
+
+
+def _qkv(p, cfg: ArchConfig, x):
+    b, s, _ = x.shape
+    dh = cfg.head_dim()
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    return q, k, v
+
+
+def attn_apply(p, cfg: ArchConfig, x, positions, *, causal=True):
+    """Self-attention over a full sequence (train / prefill)."""
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, xn)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
+    b, s, _ = x.shape
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def attn_prefill(p, cfg, x, positions, cache_len: int):
+    """Prefill that also returns the KV cache, zero-padded to cache_len."""
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, xn)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    out = attend(q, k, v, causal=True, window=cfg.sliding_window)
+    b, s, _ = x.shape
+    pad = cache_len - s
+    kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return out.reshape(b, s, -1) @ p["wo"], (kc, vc)
+
+
+def attn_prefill_cached(p, cfg, x, positions, kc, vc, prefix_len: int):
+    """Chunked prefill against a cache whose first ``prefix_len`` slots
+    hold leased prefix KV; returns (y, kc, vc) with the suffix KV written
+    (in the cache dtype) at [prefix_len, prefix_len + s)."""
+    b, s, _ = x.shape
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, xn)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    kc = kc.clone()
+    vc = vc.clone()
+    kc[:, prefix_len:prefix_len + s] = k.to(kc.dtype)
+    vc[:, prefix_len:prefix_len + s] = v.to(vc.dtype)
+    out = attend(q, kc, vc, causal=True, q_offset=prefix_len,
+                 window=cfg.sliding_window, kv_len=prefix_len + s)
+    return out.reshape(b, s, -1) @ p["wo"], kc, vc
+
+
+def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
+                      v_off: int, *, pool_off: int = 0, chunk: int):
+    """One-token decode where the KV cache lives in LeaseEngine pool pages.
+
+    ``pool_rows`` is the engine pool's (n_blocks*chunk, token_row) view,
+    ``page_rows`` (B, P) int32 and ``lengths`` (B,) int32 on its device.
+    On CUDA tensors attention runs in the paged-decode kernel (K4); on CPU
+    tensors it takes the JAX package's gather path (gather the pages, place
+    the current token, attend with the reference).  Returns (y, k_cur,
+    v_cur): the fresh RoPE'd KV in the pool dtype.
+    """
+    b = x.shape[0]
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, xn)
+    pos = lengths.to(torch.int32)[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope)
+    hk, dh = cfg.n_kv_heads, cfg.head_dim()
+    kd, vd = k.to(pool_rows.dtype), v.to(pool_rows.dtype)
+    if pool_rows.is_cuda:
+        from ..kernels.decode_attention.ops import paged_decode_attention
+        out = paged_decode_attention(
+            q, kd, vd, pool_rows, page_rows, lengths, chunk=chunk,
+            k_off=k_off, v_off=v_off, hkv=hk, pool_off=pool_off)
+    else:
+        t = page_rows.shape[1] * chunk
+        rows_idx = (page_rows.long()[:, :, None] * chunk
+                    + torch.arange(chunk, device=x.device)).reshape(b, t)
+        gathered = pool_rows[rows_idx]                # (B, T, token_row)
+        lo_k, lo_v = pool_off + k_off, pool_off + v_off
+        kc = gathered[..., lo_k:lo_k + hk * dh].reshape(b, t, hk, dh)
+        vc = gathered[..., lo_v:lo_v + hk * dh].reshape(b, t, hk, dh)
+        slot = torch.arange(t, device=x.device)[None, :] == pos
+        kc = torch.where(slot[..., None, None], kd, kc)
+        vc = torch.where(slot[..., None, None], vd, vc)
+        out = decode_attention(q, kc, vc, pos[:, 0] + 1)
+    return out.reshape(b, 1, -1) @ p["wo"], kd, vd
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _mlp_layer_init(generator, cfg, dtype, d_ff):
+    return {"attn": attn_init(generator, cfg, dtype),
+            "mlp": swiglu_init(generator, cfg.d_model, d_ff, dtype),
+            "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                   device=generator.device)}
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.bfloat16) -> Params:
+    """Random weights from ``generator``, on the generator's device (the
+    same shapes and scales as the JAX package's ``init_params``)."""
+    if cfg.family not in DENSE_FAMILIES:
+        raise NotImplementedError(
+            f"the port serves the dense family; {cfg.family!r} is not "
+            f"ported yet")
+    p: Params = {
+        "embed": dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
+                            scale=0.02),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                 device=generator.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    p["layers"] = [_mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
+                   for _ in range(cfg.n_layers)]
+    return p
+
+
+def param_leaves(p):
+    """Every parameter tensor of a (nested) parameter dict / list."""
+    if isinstance(p, torch.Tensor):
+        return [p]
+    items = p.values() if isinstance(p, dict) else p
+    return [t for v in items for t in param_leaves(v)]
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, p, batch):
+    x = p["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    return x
+
+
+def _head(cfg, p):
+    return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+
+
+def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states (B, S, D)."""
+    if cfg.family not in DENSE_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    x = _embed(cfg, p, batch)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+    for layer in p["layers"]:
+        x = x + attn_apply(layer["attn"], cfg, x, positions)
+        xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+        x = x + swiglu(layer["mlp"], xn)
+    return rmsnorm(x, p["final_norm"], cfg.norm_eps)
+
+
+def logits_fn(cfg, p, hidden):
+    return (hidden @ _head(cfg, p)).float()

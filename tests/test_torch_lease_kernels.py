@@ -1,0 +1,222 @@
+"""The port's lease ops (K1-K3's contracts) against the JAX package's
+Pallas ops in interpret mode, bit for bit; plus a CUDA lane holding each
+kernel against its plain version (skipped where there is no card)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.tardis_lease import kernel as K
+from repro_torch.kernels.tardis_lease import ops as T
+from repro_torch.kernels.tardis_lease import ref as R
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels.tardis_lease import ops as J
+except ImportError:      # the card's machine has no JAX: only the CUDA
+    jnp = J = None       # lane (-m cuda) runs there
+
+
+def _tables(n, seed):
+    rng = np.random.default_rng(seed)
+    wts = rng.integers(0, 100, n).astype(np.int32)
+    rts = np.maximum(wts, rng.integers(0, 120, n)).astype(np.int32)
+    req = np.where(rng.random(n) < 0.5, wts, wts - 1).astype(np.int32)
+    lvec = rng.integers(1, 40, n).astype(np.int32)
+    return rng, wts, rts, req, lvec
+
+
+def _cmp(jout, tout, keys):
+    for k in keys:
+        np.testing.assert_array_equal(np.asarray(jout[k]),
+                                      tout[k].numpy(), err_msg=k)
+
+
+KEYS = ("new_rts", "renew_ok", "expired", "write_ts", "new_pts")
+
+
+@pytest.mark.parametrize("n", [7, 128, 1000])
+@pytest.mark.parametrize("pts", [0, 55])
+@pytest.mark.parametrize("per_block", [False, True])
+def test_masked_lease_check(n, pts, per_block):
+    rng, wts, rts, req, lvec = _tables(n, n + pts)
+    mask = rng.integers(0, 2, n).astype(np.int32)
+    lease = lvec if per_block else 10
+    want = J.masked_lease_check(
+        jnp.asarray(wts), jnp.asarray(rts), jnp.asarray(req),
+        jnp.asarray(mask), pts,
+        jnp.asarray(lvec) if per_block else lease, interpret=True)
+    t = [torch.from_numpy(x) for x in (wts, rts, req, mask)]
+    got = T.masked_lease_check(*t, pts, lease)
+    _cmp(want, got, KEYS)
+    # and the port's ops equal its protocol-composed oracle
+    lt = torch.from_numpy(lvec) if per_block else torch.tensor(10)
+    _cmp({k: v.numpy() for k, v in
+          R.masked_lease_check_ref(*t, torch.tensor(pts), lt).items()},
+         got, KEYS)
+
+
+@pytest.mark.parametrize("n", [7, 300])
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("per_block", [False, True])
+def test_masked_lease_check_many(n, groups, per_block):
+    rng, wts, rts, req, lvec = _tables(n, 10 * n + groups)
+    masks = rng.integers(0, 2, (groups, n)).astype(np.int32)
+    pts = rng.integers(0, 120, groups).astype(np.int32)
+    lease = lvec if per_block else 10
+    want = J.masked_lease_check_many(
+        jnp.asarray(wts), jnp.asarray(rts), jnp.asarray(req),
+        jnp.asarray(masks), jnp.asarray(pts),
+        jnp.asarray(lvec) if per_block else lease, interpret=True)
+    t = [torch.from_numpy(x) for x in (wts, rts, req, masks, pts)]
+    got = T.masked_lease_check_many(*t, lease)
+    _cmp(want, got, KEYS)
+    lt = torch.from_numpy(lvec) if per_block else torch.tensor(10)
+    _cmp({k: v.numpy() for k, v in
+          R.masked_lease_check_many_ref(*t, lt).items()}, got, KEYS)
+
+
+@pytest.mark.parametrize("n", [7, 128, 1000])
+@pytest.mark.parametrize("pts", [0, 55, 500])
+def test_write_advance(n, pts):
+    rng, wts, rts, _req, _l = _tables(n, n * 3 + pts)
+    mask = rng.integers(0, 2, n).astype(np.int32)
+    want = J.write_advance(jnp.asarray(wts), jnp.asarray(rts),
+                           jnp.asarray(mask), pts, interpret=True)
+    t = [torch.from_numpy(x) for x in (wts, rts, mask)]
+    got = T.write_advance(*t, pts)
+    oracle = R.write_advance_oracle(*t, torch.tensor(pts))
+    for w, g, o in zip(want, got, oracle):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+        np.testing.assert_array_equal(o.numpy(), g.numpy())
+
+
+@pytest.mark.parametrize("n", [7, 1000])
+@pytest.mark.parametrize("pts,lease", [(0, 10), (1000, 64)])
+def test_lease_check(n, pts, lease):
+    _rng, wts, rts, req, _l = _tables(n, n)
+    want = J.lease_check(jnp.asarray(wts), jnp.asarray(rts),
+                         jnp.asarray(req), pts, lease, interpret=True)
+    got = T.lease_check(*(torch.from_numpy(x) for x in (wts, rts, req)),
+                        pts, lease)
+    _cmp(want, got, KEYS)
+
+
+def _pool(rng, n, w):
+    return rng.standard_normal((n, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("col_lo,width", [(0, None), (128, 256), (256, 128)])
+def test_gather_blocks_windows(col_lo, width):
+    rng = np.random.default_rng(col_lo)
+    pool = _pool(rng, 16, 512)
+    idx = np.asarray([3, 0, 15, 3, 7], np.int32)
+    want = J.gather_blocks(jnp.asarray(pool), jnp.asarray(idx), col_lo=col_lo,
+                           width=width, interpret=True)
+    got = T.gather_blocks(torch.from_numpy(pool), idx, col_lo=col_lo,
+                          width=width)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("n,w,rows_w,col_lo,width", [
+    (8, 256, 256, 0, None), (16, 512, 300, 0, None),
+    (16, 512, 100, 128, 256), (16, 512, 128, 384, 128)])
+def test_append_rows_windows_and_duplicates(n, w, rows_w, col_lo, width):
+    """Rows land at their ids inside the window, every other bit stays,
+    and a duplicate id keeps the LAST listed row."""
+    rng = np.random.default_rng(n + rows_w)
+    pool = _pool(rng, n, w)
+    idx = np.asarray([2, 0, n - 1, 2], np.int32)          # duplicate id
+    rows = rng.standard_normal((4, rows_w)).astype(np.float32)
+    want = J.append_rows(jnp.asarray(pool), jnp.asarray(idx),
+                         jnp.asarray(rows), col_lo=col_lo, width=width,
+                         interpret=True)
+    tp = torch.from_numpy(pool.copy())
+    got = T.append_rows(tp, idx, torch.from_numpy(rows), col_lo=col_lo,
+                        width=width)
+    assert got.data_ptr() == tp.data_ptr()                # in place
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_append_rows_bf16_pool_bits():
+    """bf16 pools compare bit for bit through their int16/uint16 views."""
+    rng = np.random.default_rng(5)
+    pool = _pool(rng, 12, 256)
+    idx = np.asarray([4, 1, 4, 11, 1], np.int32)
+    rows = rng.standard_normal((5, 200)).astype(np.float32)
+    want = J.append_rows(jnp.asarray(pool, jnp.bfloat16), jnp.asarray(idx),
+                         jnp.asarray(rows), interpret=True)
+    tp = torch.from_numpy(pool).to(torch.bfloat16)
+    got = T.append_rows(tp, idx, torch.from_numpy(rows))
+    np.testing.assert_array_equal(np.asarray(want).view(np.uint16),
+                                  got.view(torch.int16).numpy()
+                                  .view(np.uint16))
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    """On CPU tensors the wrappers run the plain versions: no launch."""
+    before = {f: f.launches for f in (K.lease_pass, K.write_advance,
+                                      K.gather_rows, K.scatter_rows)}
+    test_masked_lease_check(7, 0, False)
+    test_gather_blocks_windows(0, None)
+    test_append_rows_windows_and_duplicates(8, 256, 256, 0, None)
+    for f, n in before.items():
+        assert f.launches == n
+
+
+# --- CUDA lane: each kernel against its plain version on the card ---------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode); run on the card with -m cuda")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups,per_block", [(7, 1, False),
+                                                (4608, 4, False),
+                                                (1000, 3, True)])
+def test_cuda_lease_pass_matches_plain(cuda, n, groups, per_block):
+    rng, wts, rts, req, lvec = _tables(n, n)
+    masks = rng.integers(0, 2, (groups, n)).astype(np.int32)
+    pts = rng.integers(0, 120, groups).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, req, masks, pts)]
+    lease = torch.from_numpy(lvec).to(cuda) if per_block else 10
+    n0 = K.lease_pass.launches
+    got = K.lease_pass(*args, lease)
+    want = R.lease_pass_ref(*args, lease)
+    assert K.lease_pass.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 4608])
+def test_cuda_write_advance_matches_plain(cuda, n):
+    rng, wts, rts, _r, _l = _tables(n, n)
+    mask = rng.integers(0, 2, n).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, mask)]
+    for g, w in zip(K.write_advance(*args, 77),
+                    R.write_advance_ref(*args, 77)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row,col_lo,width", [(512, 0, 512),
+                                               (512, 128, 256),
+                                               (9600, 1152, 8320)])
+def test_cuda_row_copy_matches_plain(cuda, dtype, row, col_lo, width):
+    # the 9600-wide case spans several of the kernel's column slices
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pool = torch.randn((64, row), generator=g, device=cuda).to(dtype)
+    idx = torch.tensor([5, 9, 5, 63, 0, 9], dtype=torch.int32, device=cuda)
+    assert torch.equal(K.gather_rows(pool, idx, col_lo=col_lo, width=width),
+                       R.gather_rows_ref(pool, idx, col_lo, width))
+    rows = torch.randn((6, width), generator=g, device=cuda).to(dtype)
+    a, b = pool.clone(), pool.clone()
+    K.scatter_rows(a, idx, rows, col_lo=col_lo)
+    R.scatter_rows_ref(b, idx, rows, col_lo)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
