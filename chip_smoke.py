@@ -20,11 +20,25 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel's launch count set to 0 before and read after; then the path
      again, warm, timed plain and then under ``torch.profiler`` (device
      busy/idle share, time by kernel and kind, host time by operator);
+     Then the fixed-wave dense-cache path, twice at full width and depth:
+     tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
+     default metadata-only prefix leases), each with 4 replicas, 4096-slot
+     dense caches and 8 requests of 2048-3072 random prompt tokens and 16
+     new tokens -- launch counts set to 0 before each run and read after
+     (K5 must launch on both), then each again warm under the profiler
+     (the card's activity only: idle share, device time by kind);
   4. the same requests at full width and 2 layers on the card and on the
      CPU (the plain versions, by the caller's explicit device="cpu"):
      identical integer coherence counters, first-tick logits within the
-     bf16 tolerance, greedy-token agreement printed;
+     bf16 tolerance, greedy-token agreement printed; then the wave path
+     the same way -- tinyllama at 2 layers in bf16 and zamba2 at 6 layers
+     (one group) in fp32 weights (its bf16 arithmetic is chaotic; the
+     bf16 run's distance is printed), 2048-slot caches, short prompts;
   5. the kernel JSON line, then the result line.
+Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
+version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
+zamba2: B = 4, Hkv = 32, G = 1, Dh = 80; T = 4096, kv_len = 3000), with
+SDPA over the live slice as its library yardstick.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -45,6 +59,9 @@ BF16 = dict(rtol=3e-2, atol=3e-2)
 BF16_ULP = dict(rtol=2 ** -7, atol=1e-5)  # one bf16 rounding step apart
 FP32 = dict(rtol=2e-4, atol=2e-4)
 SEED = 0
+# the wrappers whose kernels the paged main path runs (K1-K4)
+PAGED_KERNELS = ("lease_pass", "write_advance", "row_copy.gather",
+                 "row_copy.scatter", "paged_decode")
 
 
 def log(*a):
@@ -306,14 +323,91 @@ def phase2_kernels(rows):
     for r in rows:
         r["route"] = "cuda"
         r["launch_ms"] = launch_ms
-        log(f"  {r['name']:17s} {r['ms'] * 1e3:9.2f} us  (eager call "
-            f"{r['call_ms'] * 1e3:8.2f} us)  plain "
-            f"{r['plain_ms'] * 1e3:9.2f} us  bound {r['bound_ms'] * 1e3:8.3f}"
-            f" us ({r['bound_by']})  library "
-            + (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
-               is not None else "-") + f"  [{r['shape']}]")
+        _log_row(r)
     log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us)")
     del pool, view
+
+
+def _log_row(r):
+    log(f"  {r['name']:22s} {r['ms'] * 1e3:9.2f} us  (eager call "
+        f"{r['call_ms'] * 1e3:8.2f} us)  plain "
+        f"{r['plain_ms'] * 1e3:9.2f} us  bound {r['bound_ms'] * 1e3:8.3f}"
+        f" us ({r['bound_by']})  library "
+        + (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
+           is not None else "-") + f"  [{r['shape']}]")
+
+
+def phase2_dense_decode(rows):
+    """K5 against its plain version at the wave path's two shapes: one
+    layer's view of the stacked 4096-slot caches, kv_len 3000 on the
+    device."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ref import \
+        dense_decode_attention_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, t, kv_len, n_layers = 4, 4096, 3000, 2
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for name, path, hkv, grp, dh in (
+            ("dense_decode.tinyllama", "tinyllama-1.1b", 4, 8, 64),
+            ("dense_decode.zamba2", "zamba2-2.7b", 32, 1, 80)):
+        h = hkv * grp
+        q = torch.randn((b, hkv, grp, dh), generator=g, device=dev)
+        kc = torch.randn((n_layers, b, t, hkv, dh), generator=g, device=dev)
+        vc = torch.randn((n_layers, b, t, hkv, dh), generator=g, device=dev)
+        errs = {}
+        for tag, dt, tol in (("bf16", torch.bfloat16, BF16),
+                             ("fp32", torch.float32, FP32)):
+            qd, kd, vd = q.to(dt), kc[1].to(dt), vc[1].to(dt)
+            got = DK.dense_decode(qd, kd, vd, kvl)
+            want = dense_decode_attention_ref(
+                qd.reshape(b, 1, h, dh), kd, vd, kvl).reshape(b, hkv, grp, dh)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if dt == torch.bfloat16:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **BF16_ULP)
+            errs[tag] = max_err(got.float(), want.float())
+        log(f"K5 {name} max |err|: {errs}")
+        kb = kc.to(torch.bfloat16)
+        vb = vc.to(torch.bfloat16)
+        qb = q.to(torch.bfloat16)
+        kl, vl = kb[1], vb[1]
+        qs = qb.reshape(b, h, 1, dh)
+        k_live = kl[:, :kv_len].transpose(1, 2)      # (B, Hkv, kv_len, Dh)
+        v_live = vl[:, :kv_len].transpose(1, 2)
+
+        def library(qs=qs, k_live=k_live, v_live=v_live):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, k_live, v_live, enable_gqa=True)
+
+        def kernel(qb=qb, kl=kl, vl=vl):
+            return DK.dense_decode(qb, kl, vl, kvl)
+
+        def plain(qb=qb, kl=kl, vl=vl, h=h, dh=dh):
+            return dense_decode_attention_ref(qb.reshape(b, 1, h, dh), kl,
+                                              vl, kvl)
+
+        torch.testing.assert_close(
+            library().reshape(b, hkv, grp, dh).float(), kernel().float(),
+            **BF16)
+        # bytes: each live K and V element once, q read and out written
+        # (bf16), kv_len; operations: a QK dot and a PV product per (live
+        # position, query head)
+        nbytes = (b * kv_len * hkv * dh * 2 + 2 * b * h * dh) * 2 + 4
+        rows.append(dict(
+            name=name, wrapper="dense_decode", path=path, route="cuda",
+            launch_ms=rows[0]["launch_ms"],
+            source="src/repro_torch/kernels/decode_attention/"
+            "csrc/dense_decode.cu", replaces="src/repro/kernels/"
+            "decode_attention/kernel.py:66", max_abs_err=errs["bf16"],
+            shape=f"B={b} T={t} kv_len={kv_len} Hkv={hkv} G={grp} dh={dh} "
+            f"bf16", **timings(kernel, plain, library),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 4 * b * h * kv_len * dh)))))
+        _log_row(rows[-1])
+        del q, kc, vc, kb, vb, k_live, v_live
+    torch.cuda.empty_cache()
 
 
 def _requests(Request, np, vocab, n=8, seed=SEED):
@@ -350,18 +444,31 @@ def _serve(cfg, params, dev, n_prefix_blocks, n_decode_pages, trace=False):
 
 def profile_main_path(cfg, params, smi, top=12):
     """The main path again (warm), timed plain and then under
-    ``torch.profiler``: device busy and idle share over the run, device
-    time by kernel and by kind, and host time by operator."""
-    import torch
+    ``torch.profiler``."""
+    profile_path("main path", lambda: _serve(cfg, params, "cuda", 4096,
+                                              512), smi, top)
+
+
+def profile_path(label, serve, smi, top=12, with_host=True):
+    """A path again (warm) under ``torch.profiler``: device busy and idle
+    share over the run, device time by kernel and by kind.  With
+    ``with_host`` the warm run is also timed without the profiler first,
+    and host operators are traced too (host time by operator); without
+    it only the card's activity is traced, which keeps the trace and its
+    processing small.  ``serve()`` returns (cluster, done, report,
+    seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _c, done, _r, dt = _serve(cfg, params, "cuda", 4096, 512)
+    activities = [ProfilerActivity.CUDA]
+    if with_host:
+        activities.append(ProfilerActivity.CPU)
+        _c, done, _r, dt = serve()
+        n_tok = sum(len(r.output) for r in done)
+        log(f"profile: warm {label} on {smi}: {n_tok} tokens in {dt:.3f} s "
+            f"= {n_tok / dt:.1f} tokens/s (no profiler)")
+    with profile(activities=activities) as prof:
+        _c, done, _r, wall = serve()
     n_tok = sum(len(r.output) for r in done)
-    log(f"profile: warm main path on {smi}: {n_tok} tokens in {dt:.3f} s "
-        f"= {n_tok / dt:.1f} tokens/s (no profiler)")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _c, done, _r, wall = _serve(cfg, params, "cuda", 4096, 512)
     avgs = prof.key_averages()
     dev_rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
     host_rows = [e for e in avgs if e.device_type == DeviceType.CPU]
@@ -369,22 +476,24 @@ def profile_main_path(cfg, params, smi, top=12):
     n_launch = sum(e.count for e in host_rows
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                 "cuLaunchKernel"))
-    log(f"profile: wall {wall:.3f} s under the profiler, device busy "
-        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; {n_launch} kernel "
-        f"launches for {n_tok} tokens")
+    launches = (f"{n_launch} kernel launches" if n_launch else
+                "kernel launches not traced")
+    log(f"profile: {label}: wall {wall:.3f} s under the profiler, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; {launches} for "
+        f"{n_tok} tokens")
     if not dev_rows:
         log("profile: the profiler showed no device time")
         return
     kinds = {}
     ours = ("lease_pass", "write_ts", "advance_kernel", "gather_kernel",
-            "scatter_kernel", "paged_decode")
+            "scatter_kernel", "paged_decode", "dense_decode")
     for e in dev_rows:
         kind = ("port kernels" if any(k in e.key for k in ours) else
                 "matmul" if any(k in e.key.lower() for k in
                                 ("gemm", "xmma", "nvjet", "cutlass"))
                 else "other")
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
-    log("profile: device ms by kind: "
+    log(f"profile: {label}: device ms by kind: "
         + json.dumps({k: round(v, 3) for k, v in kinds.items()}))
     for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
@@ -418,13 +527,159 @@ def phase3_main_path(smi):
         {k: (int(v) if isinstance(v, (int, np.integer)) else v)
          for k, v in report.items()}))
     log(f"launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     del cluster
     profile_main_path(cfg, params, smi)
     del params
     torch.cuda.empty_cache()
     return counts, n_tok / dt
+
+
+# The fixed-wave dense-cache path: (arch, ServingCluster kwargs)
+WAVE_PATHS = (("tinyllama-1.1b", dict(prefix_reuse=False)),
+              ("zamba2-2.7b", {}))
+
+
+def _wave_requests(Request, np, vocab, n=8, lo=2048, hi=3072, max_new=16,
+                   seed=SEED):
+    """Document-length prompts: random tokens, lengths in [lo, hi]."""
+    rng = np.random.default_rng(seed + 1)
+    return [Request(i, rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
+                    .astype(np.int32), max_new=max_new) for i in range(n)]
+
+
+def _serve_waves(cfg, params, dev, cache_len, reqs_kw, trace=False, **kw):
+    """One wave-path ``ServingCluster.run`` (4 replicas: waves of 4).
+    Returns (cluster, done, report, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Request, ServingCluster
+    cluster = ServingCluster(cfg, lambda: params, n_replicas=4,
+                             prefix_block_tokens=16, cache_len=cache_len,
+                             device=dev, **kw)
+    assert not cluster.paged
+    if trace:
+        cluster.trace = []
+    reqs = _wave_requests(Request, np, cfg.vocab, **reqs_kw)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, report = cluster.run(reqs)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return cluster, done, report, time.perf_counter() - t0
+
+
+def phase3_wave_paths(smi):
+    """The fixed-wave path at full width and depth, once per configuration
+    with the launch counts set to 0 just before and read just after, then
+    warm and profiled.  Returns {arch: launch counts}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, param_leaves
+    out = {}
+    for arch, kw in WAVE_PATHS:
+        cfg = get_arch(arch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_params(cfg, gen, torch.bfloat16)
+        n_par = sum(t.numel() for t in param_leaves(params))
+
+        def serve(cfg=cfg, params=params, kw=kw):
+            return _serve_waves(cfg, params, "cuda", 4096, {}, **kw)
+
+        reset_launch_counts()
+        cluster, done, report, dt = serve()
+        counts = launch_counts()
+        n_tok = sum(len(r.output) for r in done)
+        assert all(r.done and len(r.output) == r.max_new for r in done)
+        assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
+        lens = [len(r.prompt) for r in done]
+        log(f"wave path on {smi}: {arch} full width ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_par / 1e9:.3f} B params, "
+            f"prefix_reuse={cluster.prefix_reuse}), {len(done)} requests "
+            f"(prompts {min(lens)}-{max(lens)} tokens, 4096-slot caches), "
+            f"{n_tok} tokens in {dt:.2f} s = {n_tok / dt:.1f} tokens/s")
+        log(f"coherence_report ({arch} waves) on {smi}: " + json.dumps(
+            {k: (int(v) if isinstance(v, (int, np.integer)) else v)
+             for k, v in report.items()}))
+        log(f"launches on the {arch} wave path: {counts}")
+        assert counts["dense_decode"] > 0, \
+            f"K5 never launched on the {arch} wave path"
+        del cluster
+        torch.cuda.empty_cache()
+        # the run above already timed the path without the profiler
+        profile_path(f"{arch} wave path", serve, smi, with_host=False)
+        out[arch] = counts
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase4_wave_card_vs_cpu(smi):
+    """The wave path on the card and on the CPU: tinyllama at 2 layers
+    with bf16 weights and zamba2 at 6 (one group) with fp32 weights, full
+    width, 2048-slot caches (bf16 in both, as the path makes them; K5 on
+    the card, its plain version on the CPU), short prompts.  zamba2 runs
+    in fp32 (weights drawn in bf16, then widened) because its bf16
+    arithmetic is chaotic: the same weights run in bf16 on the card land
+    far from the fp32 logits (printed), so two bf16 runs that round a few
+    values differently land ~0.1 apart."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    short = dict(lo=24, hi=48, max_new=8)
+    for (arch, kw), n_layers, dtype in zip(
+            WAVE_PATHS, (2, 6), (torch.bfloat16, torch.float32)):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        params_bf16 = init_params(cfg, gen, torch.bfloat16)
+        params = _cast(params_bf16, dtype)   # fp32: the same weights
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            cluster, done, report, dt = _serve_waves(
+                cfg, params, dev, 2048, short, trace=True, **kw)
+            runs[dev] = (done, report, cluster.trace, dt)
+        (dg, rg, tg, sg), (dc, rc, tc, sc) = runs["cuda"], runs["cpu"]
+        ints = [k for k, v in rg.items() if isinstance(v, (int, np.integer))
+                and not isinstance(v, bool)]
+        bad = {k: (rg[k], rc[k]) for k in ints if rg[k] != rc[k]}
+        assert not bad, f"{arch}: coherence counters differ card vs cpu: {bad}"
+        first_g = next(e for e in tg if e["ev"] == "wave_step")
+        first_c = next(e for e in tc if e["ev"] == "wave_step")
+        err = float(np.abs(first_g["logits"] - first_c["logits"]).max())
+        same = sum(int(a == b) for x, y in zip(dg, dc)
+                   for a, b in zip(x.output, y.output))
+        total = sum(len(x.output) for x in dg)
+        log(f"wave card vs cpu ({smi}; {arch} full width, {n_layers} "
+            f"layers, {str(dtype)[6:]} weights, 2048-slot caches): "
+            f"{len(ints)} integer counters identical; first-step logits max "
+            f"|err| {err:.4g} (tol 3e-2); greedy tokens agree "
+            f"{same}/{total}; card {sg:.2f} s, cpu {sc:.2f} s")
+        np.testing.assert_allclose(first_g["logits"], first_c["logits"],
+                                   **BF16)
+        if dtype != torch.bfloat16:
+            # how far bf16 arithmetic alone moves this model: the same
+            # weights in bf16 on the card against the fp32 run on the CPU
+            trace = _serve_waves(cfg, params_bf16, "cuda", 2048, short,
+                                 trace=True, **kw)[0].trace
+            lb = next(e for e in trace if e["ev"] == "wave_step")["logits"]
+            log(f"  {arch} with the same weights in bf16 on the card: "
+                f"first-step logits max |err| "
+                f"{np.abs(lb - first_c['logits']).max():.4g} against the "
+                f"fp32 run on the cpu (max |logit| "
+                f"{np.abs(first_c['logits']).max():.4g})")
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def phase4_card_vs_cpu(smi):
@@ -476,16 +731,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[{time.perf_counter() - t0:7.1f} s] {phase} done")
+
     smi = phase1_card_and_build()
     rows = []
     phase2_kernels(rows)
+    phase2_dense_decode(rows)
+    stamp("phase 2")
     counts, _tps = phase3_main_path(smi)
+    stamp("phase 3 (paged path)")
+    wave_counts = phase3_wave_paths(smi)
+    stamp("phase 3 (wave paths)")
     phase4_card_vs_cpu(smi)
+    stamp("phase 4 (paged path)")
+    phase4_wave_card_vs_cpu(smi)
+    stamp("phase 4 (wave paths)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "launch_ms", "shape")
+    # K1-K4: their launches on the paged main path; K5: on its wave path
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = (wave_counts[r["path"]] if "path" in r else
+                         counts)[r.get("wrapper", r["name"])]
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

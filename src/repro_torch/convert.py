@@ -2,7 +2,9 @@
 
 The JAX package stacks per-layer parameters on a leading ``n_layers`` axis
 (``repro.models.transformer.init_params``); the port keeps a list with one
-dict per layer.  Leaves arrive as numpy arrays (bf16 ones as ml_dtypes
+dict per layer.  The hybrid family's ``groups`` are stacked on two axes
+(n_app, per) and become a list of lists; its weight-shared ``shared``
+block is one dict in both packages.  Leaves arrive as numpy arrays (bf16 ones as ml_dtypes
 ``bfloat16``, which torch cannot wrap directly, so they travel as int16
 bits).  Element counts and bytes are unchanged, so the serving cluster's
 ``param_bytes`` and flops-per-token charges match the JAX cluster's.
@@ -30,13 +32,22 @@ def _tree(x, device):
 
 
 def params_from_jax(tree: Mapping[str, Any], device="cpu") -> dict:
-    """Map a dense-family JAX parameter tree (numpy leaves) to the port's
-    parameter dict, unstacking ``layers`` into a per-layer list."""
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
-    stacked = _tree(tree["layers"], device)
-    n = _first_leaf(stacked).shape[0]
-    out["layers"] = [_index(stacked, i) for i in range(n)]
+    """Map a dense, ssm or hybrid JAX parameter tree (numpy leaves) to the
+    port's parameter dict: ``layers`` unstacked into a per-layer list,
+    ``groups`` into a list (per application) of per-layer lists."""
+    stacked = ("layers", "groups")
+    out = {k: _tree(v, device) for k, v in tree.items() if k not in stacked}
+    if "layers" in tree:
+        out["layers"] = _unstack(_tree(tree["layers"], device))
+    if "groups" in tree:
+        out["groups"] = [_unstack(g) for g in
+                         _unstack(_tree(tree["groups"], device))]
     return out
+
+
+def _unstack(x):
+    n = _first_leaf(x).shape[0]
+    return [_index(x, i) for i in range(n)]
 
 
 def _first_leaf(x):

@@ -21,7 +21,8 @@ def wrappers() -> Dict[str, Callable]:
             "write_advance": tl.write_advance,
             "row_copy.gather": tl.gather_rows,
             "row_copy.scatter": tl.scatter_rows,
-            "paged_decode": da.paged_decode}
+            "paged_decode": da.paged_decode,
+            "dense_decode": da.dense_decode}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -99,6 +99,8 @@ SIGNATURES = {
     "tardis_scatter_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
     "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32,
                                                        _I32, _I32, _VP, _VP]),
+    "tardis_dense_decode": ([_VP] * 4 + [_I32] * 6 + [_I64] * 3
+                            + [_F32, _I32, _I32] + [_VP] * 4),
 }
 
 

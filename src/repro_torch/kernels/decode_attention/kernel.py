@@ -1,22 +1,34 @@
-"""Wrapper of K4 ``paged_decode`` (CUDA C++ in ``csrc/paged_decode.cu``).
+"""Wrappers of the decode-attention kernels (CUDA C++ in ``csrc/``).
 
-``paged_decode`` takes the grouped layout of the TPU kernel
-(``paged_decode_attention_grouped``): q (B, Hkv, G, Dh), cur_k/cur_v
-(B, Hkv, Dh), pool_rows (n_blocks*chunk, token_row), page_rows (B, P)
-int32, lengths (B,) int32, absolute ``k_off`` / ``v_off`` columns.  On
-CUDA tensors it launches the kernel and counts the launch; on CPU tensors
-it runs the plain gather-then-attend version.  The kernel takes q and the
-pool in one dtype (float32 or bfloat16); the plain version also takes
-them mixed.
+K4 ``paged_decode`` (``csrc/paged_decode.cu``) takes the grouped layout of
+the TPU kernel (``paged_decode_attention_grouped``): q (B, Hkv, G, Dh),
+cur_k/cur_v (B, Hkv, Dh), pool_rows (n_blocks*chunk, token_row), page_rows
+(B, P) int32, lengths (B,) int32, absolute ``k_off`` / ``v_off`` columns.
+
+K5 ``dense_decode`` (``csrc/dense_decode.cu``) replaces
+``decode_attention_grouped``: q (B, Hkv, G, Dh), one layer's dense caches
+(B, T, Hkv, Dh) read where they lie (batch/token/head strides in whole
+16-byte vectors, Dh contiguous), and ``kv_len`` one int32 on the device.
+
+On CUDA tensors each wrapper launches its kernel and counts the launch; on
+CPU tensors it runs the plain version.  K4 takes q and the pool in one
+dtype (float32 or bfloat16); K5 also takes a float32 q over bfloat16
+caches (what the wave path makes from fp32 weights).  The plain versions
+take any mix.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import launch, ptr
-from .ref import paged_decode_attention_ref
+from .ref import dense_decode_attention_ref, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K5: cache positions per CTA; the (q, cache) dtype pairs it takes
+DENSE_SPLIT = 256
+_DENSE_PAIRS = ((torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16))
 
 
 def paged_decode(q, cur_k, cur_v, pool_rows, page_rows, lengths, *,
@@ -61,3 +73,59 @@ def paged_decode(q, cur_k, cur_v, pool_rows, page_rows, lengths, *,
 
 
 paged_decode.launches = 0
+
+
+def dense_decode(q, k_cache, v_cache, kv_len, *, scale: float = None):
+    """q (B, Hkv, G, Dh); k_cache, v_cache (B, T, Hkv, Dh) with equal
+    strides; ``kv_len``: the valid slots, an int or a 0-d int32 tensor
+    (on the card it stays there: the kernel reads it through a pointer).
+    Returns (B, Hkv, G, Dh) in q's dtype."""
+    b, hkv, g, dh = q.shape
+    dev = q.device
+    if scale is None:
+        scale = dh ** -0.5
+    if k_cache.dim() != 4 or tuple(k_cache.shape) != tuple(v_cache.shape) \
+            or k_cache.shape[0] != b or k_cache.shape[2:] != (hkv, dh):
+        raise ValueError("caches must both be (B, T, Hkv, Dh)")
+    if k_cache.dtype != v_cache.dtype:
+        raise TypeError("k_cache and v_cache must share one dtype")
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=dev)
+    if kv_len.dim() != 0:
+        raise ValueError("dense_decode takes one scalar kv_len")
+    if any(t.device != dev for t in (k_cache, v_cache)):
+        raise ValueError("all operands must be on one device")
+    t_max = k_cache.shape[1]
+    if dev.type != "cuda":
+        out = dense_decode_attention_ref(q.reshape(b, 1, hkv * g, dh),
+                                         k_cache, v_cache, kv_len)
+        return out.reshape(b, hkv, g, dh)
+    if (q.dtype, k_cache.dtype) not in _DENSE_PAIRS:
+        raise TypeError("the dense_decode kernel takes (q, caches) in "
+                        "float32/float32, bfloat16/bfloat16 or "
+                        "float32/bfloat16")
+    if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1:
+        raise ValueError("dense_decode needs equal cache strides and a "
+                         "contiguous head dim")
+    vec = 16 // k_cache.element_size()    # elements in one 16-byte load
+    if not q.is_contiguous() or dh > 256 or dh % vec \
+            or any(s % vec for s in k_cache.stride()[:3]) \
+            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"dense_decode needs a contiguous q, dh <= 256, and "
+                         f"dh and the cache strides in multiples of {vec} "
+                         f"elements from 16-byte aligned caches")
+    n_split = -(-t_max // DENSE_SPLIT)
+    part_acc = torch.empty((b * hkv, n_split, g, dh), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((b * hkv, n_split, 2, g), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty_like(q)
+    sb, st, sh, _ = k_cache.stride()
+    launch("tardis_dense_decode", ptr(q), ptr(k_cache), ptr(v_cache),
+           ptr(kv_len), b, hkv, g, dh, t_max, DENSE_SPLIT, sb, st, sh,
+           float(scale), _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
+           ptr(part_acc), ptr(part_ml), ptr(out))
+    dense_decode.launches += 1
+    return out
+
+
+dense_decode.launches = 0

@@ -1,15 +1,29 @@
-"""Public wrapper: paged-pool flash decode (the JAX ``ops.py`` contract).
+"""Public wrappers: dense-cache and paged-pool flash decode (the JAX
+``ops.py`` contracts).
 
-``paged_decode_attention``: (B, 1, H, Dh) query + the LeaseEngine pool's
-(n_rows, token_row) view + per-request page tables / lengths + the current
-token's fresh (k, v) -- KV never leaves its pool pages.
+``decode_attention``: (B, 1, H, Dh) query + (B, T, Hkv, Dh) caches + one
+scalar ``kv_len``.  ``paged_decode_attention``: (B, 1, H, Dh) query + the
+LeaseEngine pool's (n_rows, token_row) view + per-request page tables /
+lengths + the current token's fresh (k, v) -- KV never leaves its pool
+pages.
 """
 from __future__ import annotations
 
-from .kernel import paged_decode
-from .ref import paged_decode_attention_ref
+from .kernel import dense_decode, paged_decode
+from .ref import dense_decode_attention_ref, paged_decode_attention_ref
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+__all__ = ["decode_attention", "dense_decode_attention_ref",
+           "paged_decode_attention", "paged_decode_attention_ref"]
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """q: (B, 1, H, Dh); caches: (B, T, Hkv, Dh), read in place (no
+    transpose, no head-dim padding); kv_len: scalar valid slots."""
+    b, _one, h, dh = q.shape
+    hkv = k_cache.shape[2]
+    out = dense_decode(q.reshape(b, hkv, h // hkv, dh).contiguous(),
+                       k_cache, v_cache, kv_len, scale=dh ** -0.5)
+    return out.reshape(b, 1, h, dh)
 
 
 def paged_decode_attention(q, cur_k, cur_v, pool_rows, page_rows, lengths,

@@ -1,16 +1,24 @@
-"""Plain version of the paged-decode kernel: gather-then-attend.
+"""Plain versions of the decode kernels (the port of
+``repro.kernels.decode_attention.ref``).
 
-The port of ``repro.kernels.decode_attention.ref.paged_decode_attention_ref``:
-materialize each request's pages into a dense cache, place the current
-token at slot ``lengths[b]`` and run the naive reference over the valid
-prefix (kv_len = lengths + 1).  ``k_off`` / ``v_off`` are absolute columns
-of the token row.
+``dense_decode_attention_ref``: naive attention over the valid prefix of a
+dense cache (K5's plain version).  ``paged_decode_attention_ref``:
+gather-then-attend -- materialize each request's pages into a dense cache,
+place the current token at slot ``lengths[b]`` and run the naive reference
+over the valid prefix (kv_len = lengths + 1); ``k_off`` / ``v_off`` are
+absolute columns of the token row (K4's plain version).
 """
 from __future__ import annotations
 
 import torch
 
 from ...models.attention import reference_attention
+
+
+def dense_decode_attention_ref(q, k_cache, v_cache, kv_len):
+    """q (B, 1, H, Dh); caches (B, T, Hkv, Dh); kv_len valid slots."""
+    return reference_attention(q, k_cache, v_cache, causal=False,
+                               kv_len=kv_len)
 
 
 def paged_decode_attention_ref(q, cur_k, cur_v, pool_rows, page_rows,

@@ -1,10 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Starts a Tardis-coherent replica cluster (one host, paged KV pool) on the
-selected dense architecture -- its reduced config, or with
-``--full-width`` the published one -- with random weights from
-``--seed``, serves synthetic requests sharing a system prompt and prints
-the coherence report.  Runs on the card unless ``--device cpu``.
+Starts a Tardis-coherent replica cluster (one host) on the selected
+architecture -- its reduced config, or with ``--full-width`` the published
+one -- with random weights from ``--seed``, serves synthetic requests
+sharing a system prompt and prints the coherence report.  The dense/vlm
+families serve through the paged KV pool; the ssm and hybrid families
+serve fixed waves on dense caches of ``--cache-len`` slots.  Runs on the
+card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ def main(argv=None):
                     help="page-table length per request")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="continuous-batch slots per replica")
+    ap.add_argument("--cache-len", type=int, default=96,
+                    help="dense-cache slots per request (wave path)")
     ap.add_argument("--hosts", type=int, default=1,
                     help="simulated hosts (only 1 is ported)")
     ap.add_argument("--consistency", choices=CONSISTENCY_MODELS,
@@ -72,9 +76,9 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if cfg.family not in ("dense", "vlm"):
-        raise SystemExit(f"the port serves the dense family; {args.arch} is "
-                         f"{cfg.family}")
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+        raise SystemExit(f"the port serves the dense, ssm and hybrid "
+                         f"families; {args.arch} is {cfg.family}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     params = init_params(cfg, gen, dtype)
@@ -82,7 +86,8 @@ def main(argv=None):
         cfg, lambda: params, n_replicas=args.replicas, lease=args.lease,
         prefix_block_tokens=args.prefix_block, policy=policy,
         n_decode_pages=args.decode_pages, max_pages=args.max_pages,
-        selfinc_period=4, max_batch=args.max_batch, device=device)
+        selfinc_period=4, max_batch=args.max_batch,
+        cache_len=args.cache_len, device=device)
     rng = np.random.default_rng(args.seed)
     system = rng.integers(1, cfg.vocab, args.prefix_len).astype(np.int32)
     reqs = [Request(i, np.concatenate(
@@ -102,9 +107,13 @@ def main(argv=None):
           f"{dt:.2f} s")
     for k, v in report.items():
         print(f"  {k:28s} {v}")
-    print(f"paged decode: {report['kv_tokens_appended']} token rows "
-          f"through pool pages, peak {report['pool_page_peak']} pages in "
-          f"use, {report['pool_pages_freed']} freed")
+    if cluster.paged:
+        print(f"paged decode: {report['kv_tokens_appended']} token rows "
+              f"through pool pages, peak {report['pool_page_peak']} pages "
+              f"in use, {report['pool_pages_freed']} freed")
+    else:
+        print(f"wave decode: dense caches of {args.cache_len} slots, "
+              f"{report['prefix_block_hits']} prefix-block lease hits")
     return done, report
 
 

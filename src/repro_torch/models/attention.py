@@ -3,9 +3,11 @@
 The port of ``repro.models.attention``.  ``flash_attention`` is the plain
 blocked online-softmax schedule (it was plain jnp in the JAX package, not
 Pallas), ``reference_attention`` the naive masked oracle and small-shape
-path, ``decode_attention`` single-token attention over a dense cache --
-reference only in this port (the dense-cache split-K decode kernel of the
-TPU package is not ported yet).
+path.  ``decode_attention`` is single-token attention over a dense cache:
+long caches with one scalar length route to the split-KV decode kernel K5
+(``kernels/decode_attention/csrc/dense_decode.cu``) under the JAX
+package's conditions, with "the tensors are on CUDA" in place of "the
+backend is TPU"; everything else takes the reference.
 """
 from __future__ import annotations
 
@@ -102,9 +104,38 @@ def reference_attention(q, k, v, *, causal: bool, q_offset=0,
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cur_len):
+# Eligible GQA decode shapes (long caches, one scalar length) go through
+# K5; the reference einsum stays the path for small caches, where one
+# fused product beats a kernel launch and the CPU tests keep its bits.
+DECODE_KERNEL_MIN_T = 2048
+
+
+def _kernel_eligible(q, k_cache, cur_len, min_t: int) -> bool:
+    _b, sq, h, _dh = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    if sq != 1 or h % hkv or t < min_t:
+        return False
+    if torch.as_tensor(cur_len).dim() != 0:   # per-request: paged path only
+        return False
+    if t % min(512, t):                # the TPU kernel's block tiles the cache
+        return False
+    return q.is_cuda and k_cache.is_cuda
+
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, use_kernel=None,
+                     min_t: int = DECODE_KERNEL_MIN_T):
     """Single-token attention over a dense cache: q (B, 1, H, Dh), caches
-    (B, T, Hkv, Dh), ``cur_len`` valid slots (scalar or (B,))."""
+    (B, T, Hkv, Dh), ``cur_len`` valid slots (scalar or (B,)).
+
+    ``use_kernel=None`` routes eligible shapes to K5; True forces the
+    kernel's wrapper (its plain version on CPU tensors); False forces the
+    reference."""
+    if use_kernel is None:
+        use_kernel = _kernel_eligible(q, k_cache, cur_len, min_t)
+    if use_kernel:
+        from ..kernels.decode_attention.ops import \
+            decode_attention as decode_kernel
+        return decode_kernel(q, k_cache, v_cache, cur_len)
     return reference_attention(q, k_cache, v_cache, causal=False,
                                kv_len=cur_len)
 

@@ -1,7 +1,15 @@
-"""Serving paths for the dense family: prefill, suffix prefill and the
-paged single-token decode (the port of ``repro.models.decoding``).
+"""Serving paths: cache init, prefill, dense-cache decode, suffix prefill
+and the paged single-token decode (the port of ``repro.models.decoding``).
 
-Caches keep the JAX layout: ``{"k", "v"}`` each (L, B, T, Hkv, Dh).
+Caches keep the JAX layout, stacked on a leading layer axis:
+  * dense/vlm: ``{"k", "v"}`` each (L, B, T, Hkv, Dh);
+  * ssm: ``{"state"}`` (L, B, H, P, N) fp32 and ``{"conv"}`` (L, B, K-1, C);
+  * hybrid: those two plus ``{"ak", "av"}`` (n_app, B, T, Hkv, Dh) for the
+    shared attention block's per-application caches.
+``decode_step`` writes the new token's K/V row and SSM state **in place**
+(the JAX version rebuilt the stacked caches every step: a whole-cache copy
+per token in eager PyTorch); only the small conv buffer is rebuilt, so its
+dtype follows the JAX promotion of buffer and new input.
 """
 from __future__ import annotations
 
@@ -11,8 +19,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.tardis_lease.kernel import scatter_rows
-from .layers import rmsnorm, swiglu
-from .transformer import (Params, _embed, attn_decode_paged, attn_prefill,
+from .layers import rmsnorm
+from .ssm import ssm_block
+from .transformer import (PORTED_FAMILIES, Params, _embed, _mlp_after,
+                          attn_decode, attn_decode_paged, attn_prefill,
                           attn_prefill_cached, logits_fn)
 
 Cache = Dict[str, Any]
@@ -47,6 +57,88 @@ def pool_layout(cfg: ArchConfig) -> List[StackSpec]:
     return [StackSpec("kv", "layers", ("k", "v"), cfg.n_layers, "mlp", 0, te)]
 
 
+def _attn_cache(cfg, n, b, t, dtype, device):
+    hk, dh = cfg.n_kv_heads, cfg.head_dim()
+    return (torch.zeros((n, b, t, hk, dh), dtype=dtype, device=device),
+            torch.zeros((n, b, t, hk, dh), dtype=dtype, device=device))
+
+
+def _ssm_cache(cfg, n, b, dtype, device):
+    h, pd, ns = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    return (torch.zeros((n, b, h, pd, ns), dtype=torch.float32, device=device),
+            torch.zeros((n, b, cfg.conv_width - 1, c), dtype=dtype,
+                        device=device))
+
+
+def init_cache(cfg: ArchConfig, b: int, t: int, dtype=torch.bfloat16,
+               device="cpu") -> Cache:
+    """Zeroed decode caches of the dense/vlm, ssm and hybrid families."""
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        k, v = _attn_cache(cfg, cfg.n_layers, b, t, dtype, device)
+        return {"k": k, "v": v}
+    if fam == "ssm":
+        s, c = _ssm_cache(cfg, cfg.n_layers, b, dtype, device)
+        return {"state": s, "conv": c}
+    if fam == "hybrid":
+        n_app = cfg.n_layers // cfg.attn_every
+        s, c = _ssm_cache(cfg, cfg.n_layers, b, dtype, device)
+        ak, av = _attn_cache(cfg, n_app, b, t, dtype, device)
+        return {"state": s, "conv": c, "ak": ak, "av": av}
+    raise NotImplementedError(f"family {fam!r} is not ported yet")
+
+
+def _ssm_layers_decode(cfg, layers, x, cache, lo: int, convs: List):
+    """Decode through Mamba2 blocks ``layers`` (cache rows lo, lo+1, ...):
+    the fp32 state updates in place, each new conv tail goes to
+    ``convs``."""
+    for i, layer in enumerate(layers):
+        state = cache["state"][lo + i]
+        y, (s2, c2) = ssm_block(layer["ssm"], cfg, x,
+                                decode_state=(state, cache["conv"][lo + i]))
+        state.copy_(s2)
+        convs.append(c2)
+        x = x + y
+    return x
+
+
+def decode_step(cfg: ArchConfig, p: Params, cache: Cache, tokens,
+                cur_idx) -> Tuple[Cache, torch.Tensor]:
+    """tokens: (B, 1) int32; cur_idx: the next cache slot -- an int or a
+    0-d int32 tensor on the cache's device (a wave in lockstep) -- or a
+    (B,) vector for the attention-cache families.
+
+    Returns (cache, logits (B, 1, V)); ``cache`` is the argument, updated
+    in place except for its rebuilt ``conv`` entry."""
+    fam = cfg.family
+    if fam not in PORTED_FAMILIES:
+        raise NotImplementedError(f"family {fam!r} is not ported yet")
+    x = p["embed"][tokens.long()]
+    new_cache = dict(cache)
+    if fam in ("dense", "vlm"):
+        for li, layer in enumerate(p["layers"]):
+            y, _kc, _vc = attn_decode(layer["attn"], cfg, x, cache["k"][li],
+                                      cache["v"][li], cur_idx)
+            x = _mlp_after(cfg, layer, x + y)
+    elif fam == "ssm":
+        convs: List = []
+        x = _ssm_layers_decode(cfg, p["layers"], x, cache, 0, convs)
+        new_cache["conv"] = torch.stack(convs)
+    else:                                           # hybrid
+        convs = []
+        shared = p["shared"]
+        for a, group in enumerate(p["groups"]):
+            x = _ssm_layers_decode(cfg, group, x, cache, a * cfg.attn_every,
+                                   convs)
+            y, _kc, _vc = attn_decode(shared["attn"], cfg, x, cache["ak"][a],
+                                      cache["av"][a], cur_idx)
+            x = _mlp_after(cfg, shared, x + y)
+        new_cache["conv"] = torch.stack(convs)
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    return new_cache, logits_fn(cfg, p, x)
+
+
 def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
                       lengths, tokens, *, chunk: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,9 +169,7 @@ def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
                 layer["attn"], cfg, x, pool_rows, page_rows, lengths,
                 li * hkd, (spec.n_layers + li) * hkd, pool_off=spec.offset,
                 chunk=chunk)
-            x = x + y
-            xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-            x = x + swiglu(layer["mlp"], xn)
+            x = _mlp_after(cfg, layer, x + y)
             k_off = spec.offset + li * hkd
             v_off = spec.offset + (spec.n_layers + li) * hkd
             row_buf[:, k_off:k_off + hkd] = kd.reshape(b, hkd)
@@ -109,25 +199,44 @@ def _last_logits(cfg, p, x, last_idx):
 def prefill(cfg: ArchConfig, p: Params, batch, cache_len: int,
             dtype=torch.bfloat16, last_idx=None) -> Tuple[Cache,
                                                          torch.Tensor]:
-    """Processes the prompt, returns (cache, last-token logits)."""
-    if cfg.family not in PAGED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """Processes the prompt, returns (cache, last-token logits).  Each
+    layer's KV / state is written into a preallocated stacked cache (no
+    ``torch.stack`` of per-layer copies)."""
+    fam = cfg.family
+    if fam not in PORTED_FAMILIES:
+        raise NotImplementedError(f"family {fam!r} is not ported yet")
     x = _embed(cfg, p, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    ks, vs = [], []
-    for layer in p["layers"]:
+    cache = init_cache(cfg, b, cache_len, dtype, x.device)
+
+    def attn_layer(layer, x, kcache, vcache):
         y, (kc, vc) = attn_prefill(layer["attn"], cfg, x, positions,
                                    cache_len)
-        x = x + y
-        xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(layer["mlp"], xn)
-        ks.append(kc.to(dtype))
-        vs.append(vc.to(dtype))
+        kcache.copy_(kc)
+        vcache.copy_(vc)
+        return _mlp_after(cfg, layer, x + y)
+
+    def ssm_layers(layers, x, lo):
+        for i, layer in enumerate(layers):
+            y, (st, cv) = ssm_block(layer["ssm"], cfg, x)
+            cache["state"][lo + i].copy_(st)
+            cache["conv"][lo + i].copy_(cv)
+            x = x + y
+        return x
+
+    if fam in ("dense", "vlm"):
+        for li, layer in enumerate(p["layers"]):
+            x = attn_layer(layer, x, cache["k"][li], cache["v"][li])
+    elif fam == "ssm":
+        x = ssm_layers(p["layers"], x, 0)
+    else:                                           # hybrid
+        for a, group in enumerate(p["groups"]):
+            x = ssm_layers(group, x, a * cfg.attn_every)
+            x = attn_layer(p["shared"], x, cache["ak"][a], cache["av"][a])
     x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
-    return ({"k": torch.stack(ks), "v": torch.stack(vs)},
-            _last_logits(cfg, p, x, last_idx))
+    return cache, _last_logits(cfg, p, x, last_idx)
 
 
 def prefill_suffix(cfg: ArchConfig, p: Params, batch, cache: Cache,
@@ -152,9 +261,7 @@ def prefill_suffix(cfg: ArchConfig, p: Params, batch, cache: Cache,
             y, kc, vc = attn_prefill_cached(layer["attn"], cfg, x, positions,
                                             cache[ck][li], cache[cv][li],
                                             prefix_len)
-            x = x + y
-            xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-            x = x + swiglu(layer["mlp"], xn)
+            x = _mlp_after(cfg, layer, x + y)
             ks.append(kc)
             vs.append(vc)
         out[ck], out[cv] = torch.stack(ks), torch.stack(vs)

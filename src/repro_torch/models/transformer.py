@@ -1,10 +1,16 @@
-"""Dense-family model assembly (the port of ``repro.models.transformer``).
+"""Model assembly for the dense/vlm, ssm and hybrid families (the port of
+``repro.models.transformer``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,),
-``lm_head`` (D, V) unless tied, and ``layers`` -- a list with one dict per
-layer (``attn`` {wq, wk, wv, wo, norm}, ``mlp`` {w_gate, w_up, w_down},
-``mlp_norm``).  The JAX package stacks layers on a leading axis for
-``lax.scan``; PyTorch runs eagerly, so the port loops over a list
+``lm_head`` (D, V) unless tied, and per family
+  * dense/vlm: ``layers`` -- a list with one dict per layer (``attn``
+    {wq, wk, wv, wo, norm}, ``mlp`` {w_gate, w_up, w_down}, ``mlp_norm``);
+  * ssm: ``layers`` -- a list of ``{"ssm": {...}}`` Mamba2 blocks;
+  * hybrid (zamba2): ``groups`` -- ``n_layers // attn_every`` lists of
+    ``attn_every`` Mamba2 blocks each -- and ``shared``, ONE attention +
+    MLP block (weight-shared) applied after every group.
+The JAX package stacks layers on leading axes for ``lax.scan``; PyTorch
+runs eagerly, so the port loops over lists
 (:func:`repro_torch.convert.params_from_jax` unstacks).  The JAX package's
 ``dist.annotate.replicate`` / ``batch_activations`` sharding hints are
 numerical identities on one device and are dropped here.
@@ -18,10 +24,13 @@ import torch
 from ..configs.base import ArchConfig
 from .attention import attend, decode_attention
 from .layers import apply_rope, dense_init, rmsnorm, swiglu, swiglu_init
+from .ssm import ssm_block, ssm_init
 
 Params = Dict[str, Any]
 
 DENSE_FAMILIES = ("dense", "vlm")
+# families whose params, forward, prefill and dense-cache decode are ported
+PORTED_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +101,35 @@ def attn_prefill_cached(p, cfg, x, positions, kc, vc, prefix_len: int):
     return out.reshape(b, s, -1) @ p["wo"], kc, vc
 
 
+def attn_decode(p, cfg, x, kc, vc, cur_idx):
+    """One-token decode: insert k/v at ``cur_idx``, attend over the cache.
+
+    ``cur_idx`` is a scalar (a wave decoding in lockstep; an int or a 0-d
+    int tensor on the cache's device) or a (B,) vector (each request at
+    its own position).  The new row is written **in place** into ``kc`` /
+    ``vc`` (the JAX version returned updated copies); a scalar index is
+    clamped into the cache as ``dynamic_update_slice`` clamps it.  Returns
+    (y, kc, vc).
+    """
+    b = x.shape[0]
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, xn)
+    cur = torch.as_tensor(cur_idx, dtype=torch.int32, device=x.device)
+    pos = cur.expand(b, 1) if cur.dim() == 0 else cur[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope)
+    if cur.dim() == 0:
+        slot = cur.clamp(0, kc.shape[1] - 1).long().reshape(1)
+        kc.index_copy_(1, slot, k.to(kc.dtype))
+        vc.index_copy_(1, slot, v.to(vc.dtype))
+    else:
+        ar = torch.arange(b, device=x.device)
+        kc[ar, cur.long()] = k[:, 0].to(kc.dtype)
+        vc[ar, cur.long()] = v[:, 0].to(vc.dtype)
+    out = decode_attention(q, kc, vc, cur + 1)
+    return out.reshape(b, 1, -1) @ p["wo"], kc, vc
+
+
 def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
                       v_off: int, *, pool_off: int = 0, chunk: int):
     """One-token decode where the KV cache lives in LeaseEngine pool pages.
@@ -146,10 +184,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.bfloat16) -> Params:
     """Random weights from ``generator``, on the generator's device (the
     same shapes and scales as the JAX package's ``init_params``)."""
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense family; {cfg.family!r} is not "
-            f"ported yet")
+            f"the port serves the dense, ssm and hybrid families; "
+            f"{cfg.family!r} is not ported yet")
     p: Params = {
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
                             scale=0.02),
@@ -158,8 +196,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
-    p["layers"] = [_mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
-                   for _ in range(cfg.n_layers)]
+    if cfg.family in DENSE_FAMILIES:
+        p["layers"] = [_mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
+                       for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
+        p["layers"] = [{"ssm": ssm_init(generator, cfg, dtype)}
+                       for _ in range(cfg.n_layers)]
+    else:                                           # hybrid
+        n_app, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        p["groups"] = [[{"ssm": ssm_init(generator, cfg, dtype)}
+                        for _ in range(per)] for _ in range(n_app)]
+        p["shared"] = _mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
     return p
 
 
@@ -189,7 +236,7 @@ def _head(cfg, p):
 
 def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     """Full-sequence forward -> final hidden states (B, S, D)."""
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     x = _embed(cfg, p, batch)
     b, s, _ = x.shape
@@ -197,11 +244,29 @@ def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-    for layer in p["layers"]:
-        x = x + attn_apply(layer["attn"], cfg, x, positions)
-        xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(layer["mlp"], xn)
+    if cfg.family in DENSE_FAMILIES:
+        for layer in p["layers"]:
+            x = _dense_layer_fwd(cfg, layer, x, positions)
+    elif cfg.family == "ssm":
+        for layer in p["layers"]:
+            x = x + ssm_block(layer["ssm"], cfg, x)[0]
+    else:                                           # hybrid
+        for group in p["groups"]:
+            for layer in group:
+                x = x + ssm_block(layer["ssm"], cfg, x)[0]
+            x = _dense_layer_fwd(cfg, p["shared"], x, positions)
     return rmsnorm(x, p["final_norm"], cfg.norm_eps)
+
+
+def _dense_layer_fwd(cfg, layer, x, positions):
+    return _mlp_after(cfg, layer, x + attn_apply(layer["attn"], cfg, x,
+                                                  positions))
+
+
+def _mlp_after(cfg, layer, x):
+    """The layer body after attention: x + swiglu(rmsnorm(x))."""
+    xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+    return x + swiglu(layer["mlp"], xn)
 
 
 def logits_fn(cfg, p, hidden):

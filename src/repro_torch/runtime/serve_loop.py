@@ -26,11 +26,18 @@ The lease protocol is batched per admission group: one logical tick, one
 union of the misses.  Host sync points (``int(ts)``, argmax tokens) are
 kept where the JAX package has them.
 
-Not ported in this slice (each raises ``NotImplementedError``): the
-sharded-directory multi-host path (``attach_directory``,
-``MultiHostServingCluster``), the prefill-pod ``prefill_only_tick`` and
-the dense-cache fallback ``DecodeReplica.serve`` of the ssm/hybrid
-families.
+**Fixed-wave dense-cache path.**  A cluster whose engine holds no KV pool
+(the ssm and hybrid families always, any family with
+``prefix_reuse=False``) serves fixed waves of ``n_replicas`` requests
+instead: per wave one batched prefix-lease interaction (metadata only)
+and the rebase guard, then :meth:`DecodeReplica.serve` prefills the wave
+into dense caches and decodes it in lockstep at one scalar position kept
+on the device (:func:`repro_torch.models.decode_step`).  Attention over
+caches of 2048+ slots runs in the split-KV decode kernel K5.
+
+Not ported yet (each raises ``NotImplementedError``): the sharded-directory
+multi-host path (``attach_directory``, ``MultiHostServingCluster``) and the
+prefill-pod ``prefill_only_tick``.
 """
 from __future__ import annotations
 
@@ -47,8 +54,8 @@ from ..core.lease_engine import LeaseEngine
 from ..core.policy import CoherencePolicy, resolve_policy
 from ..core.store import Replica, TardisStore
 from ..device import DeviceLike, pick_device
-from ..models import (PAGED_FAMILIES, decode_step_paged, param_leaves,
-                      pool_layout, prefill, prefill_suffix)
+from ..models import (PAGED_FAMILIES, decode_step, decode_step_paged,
+                      param_leaves, pool_layout, prefill, prefill_suffix)
 
 KV_POOL_FAMILIES = PAGED_FAMILIES
 
@@ -106,6 +113,7 @@ class DecodeReplica:
         self.cache_len = cache_len
         self.kv_pts = 0
         self.kv_leases: Dict[int, Tuple[int, int, int]] = {}
+        self.trace: Optional[List[Dict]] = None   # the cluster's debug hook
 
     def params(self):
         """Weight access through the lease (renewal-on-expiry)."""
@@ -122,9 +130,49 @@ class DecodeReplica:
             for bid, (w, r, t) in self.kv_leases.items() if r >= shift}
 
     def serve(self, reqs: List[Request], params=None) -> List[Request]:
-        raise NotImplementedError(
-            "the dense-cache wave fallback (ssm/hybrid families) is not "
-            "ported yet")
+        """Dense-cache wave: greedy-decode a fixed wave of requests on the
+        weights' device.  Kept exactly as the JAX package has it: prompts
+        are right-padded with token 0 to the wave's longest, every
+        request's first token comes from the logits at position s - 1, and
+        the wave decodes in lockstep at one position ``cur`` (a device
+        scalar), re-reading the weights through the lease every step."""
+        if not reqs:
+            return reqs
+        if params is None:
+            params = self.params()
+        dev = params["embed"].device
+        s = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), s), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.prompt)] = r.prompt
+        cache, logits = prefill(self.cfg, params,
+                                {"tokens": torch.as_tensor(toks, device=dev)},
+                                self.cache_len)
+        self._trace("wave_prefill", reqs, logits)
+        outs = [[] for _ in reqs]
+        cur = torch.tensor(s, dtype=torch.int32, device=dev)
+        next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        max_new = max(r.max_new for r in reqs)
+        for _step in range(max_new):
+            for o, t in zip(outs, next_tok[:, 0].tolist()):
+                o.append(int(t))
+            params = self.params()           # lease check per decode step
+            cache, logits = decode_step(self.cfg, params, cache, next_tok,
+                                        cur)
+            self._trace("wave_step", reqs, logits)
+            next_tok = torch.argmax(logits[:, -1], -1).to(
+                torch.int32)[:, None]
+            cur = cur + 1
+        for r, o in zip(reqs, outs):
+            r.output = np.asarray(o[:r.max_new], np.int32)
+            r.done = True
+        return reqs
+
+    def _trace(self, ev: str, reqs: List[Request], logits) -> None:
+        if self.trace is not None:
+            self.trace.append({"ev": ev, "rep": self.name,
+                               "rids": [r.rid for r in reqs],
+                               "logits": logits.float().cpu().numpy()})
 
 
 def _prefix_cache(stacks, pkv, batch: int, cache_len: int, skip: int,
@@ -739,12 +787,33 @@ class ServingCluster:
             self._paged_tick(queues, tick)
             tick += 1
 
+    # -- fixed-wave dense-cache path ----------------------------------------
+
+    def _serve_wave(self, rep: DecodeReplica, wave: List[Request],
+                    plan: Optional[WavePlan]) -> None:
+        """One wave on the dense-cache path: the lease protocol already ran
+        for it (prefix metadata sharing); decode stays on the wave's own
+        dense caches."""
+        del plan
+        rep.trace = self.trace
+        rep.serve(wave, params=rep.params())
+
     def run(self, requests: List[Request]) -> Tuple[List[Request], Dict]:
-        if not self.paged:
-            raise NotImplementedError(
-                "only the paged path (dense family, prefix_reuse=True) is "
-                "ported; the dense-cache wave fallback is not")
-        self._run_paged(requests)
+        if self.paged:
+            self._run_paged(requests)
+            return requests, self.coherence_report()
+        waves: List[List[Request]] = []
+        for i, r in enumerate(requests):
+            if i % len(self.replicas) == 0:
+                waves.append([])
+            waves[-1].append(r)
+        for i, wave in enumerate(waves):
+            rep = self.replicas[i % len(self.replicas)]
+            plan = None
+            if self.prefix_reuse:
+                plan = self._lease_prefix_wave(rep, [r.prompt for r in wave])
+                self._maybe_rebase()
+            self._serve_wave(rep, wave, plan)
         return requests, self.coherence_report()
 
     def coherence_report(self) -> Dict[str, Any]:
