@@ -16,13 +16,19 @@ def wrappers() -> Dict[str, Callable]:
     ``launches`` that counts the launches of its kernel (and nothing
     else)."""
     from .decode_attention import kernel as da
+    from .flash_attention import kernel as fa
+    from .rmsnorm import kernel as rn
+    from .ssd_scan import kernel as ss
     from .tardis_lease import kernel as tl
     return {"lease_pass": tl.lease_pass,
             "write_advance": tl.write_advance,
             "row_copy.gather": tl.gather_rows,
             "row_copy.scatter": tl.scatter_rows,
             "paged_decode": da.paged_decode,
-            "dense_decode": da.dense_decode}
+            "dense_decode": da.dense_decode,
+            "flash_prefill": fa.flash_prefill,
+            "ssd_chunk": ss.ssd_chunk,
+            "rmsnorm": rn.rmsnorm_2d}
 
 
 def launch_counts() -> Dict[str, int]:

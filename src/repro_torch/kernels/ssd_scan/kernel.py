@@ -1,0 +1,67 @@
+"""Wrapper of the SSD intra-chunk kernel K7 (CUDA C++ in
+``csrc/ssd_chunk.cu``).
+
+``ssd_chunk(x, dt, cum, B, C, chunk=...)`` takes the model's tensors where
+they lie: x (b, s, h, p) and B, C (b, s, n) -- one group shared by every
+head, read with head stride 0 -- or (b, s, h, n), at any strides with the
+last dim contiguous (B and C at equal strides); dt (b, s, h) fp32; cum
+(b, nc, chunk, h) fp32, the within-chunk cumulative log-decay of the
+zero-padded dt.  Positions past s count as the zero padding.  Returns fp32
+y_intra (b, nc, chunk, h, p) and chunk states S (b, nc, h, p, n).  On CUDA
+tensors it launches K7 and counts the launch; on CPU tensors it runs the
+plain version (:func:`.ref.ssd_chunk_ref`).
+"""
+from __future__ import annotations
+
+import torch
+
+from .._build import launch, ptr
+from .ref import ssd_chunk_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 256
+MAX_STATE = 256
+
+
+def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    if tuple(B.shape) != tuple(C.shape) or B.shape[:2] != (b, s) \
+            or B.dim() not in (3, 4) or (B.dim() == 4 and B.shape[2] != h):
+        raise ValueError("B and C must both be (b, s, n) or (b, s, h, n)")
+    if tuple(dt.shape) != (b, s, h):
+        raise ValueError("dt must be (b, s, h)")
+    if tuple(cum.shape) != (b, nc, chunk, h):
+        raise ValueError(f"cum must be (b, nc, chunk, h) = "
+                         f"{(b, nc, chunk, h)}")
+    if any(t.device != x.device for t in (dt, cum, B, C)):
+        raise ValueError("all operands must be on one device")
+    if x.device.type != "cuda":
+        return ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    if x.dtype not in _DTYPES or B.dtype not in _DTYPES \
+            or C.dtype != B.dtype:
+        raise TypeError("the ssd_chunk kernel takes x and B/C in float32 or "
+                        "bfloat16 (B and C in one dtype)")
+    if dt.dtype != torch.float32 or cum.dtype != torch.float32:
+        raise TypeError("dt and cum must be float32")
+    if chunk > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"the ssd_chunk kernel takes chunk <= {MAX_CHUNK} "
+                         f"and state <= {MAX_STATE}")
+    if x.stride(3) != 1 or B.stride() != C.stride() or B.stride(-1) != 1 \
+            or dt.stride(2) != 1 or not cum.is_contiguous():
+        raise ValueError("ssd_chunk needs contiguous last dims, B and C at "
+                         "equal strides and a contiguous cum")
+    bsh = 0 if B.dim() == 3 else B.stride(2)
+    y = torch.empty((b, nc, chunk, h, p), dtype=torch.float32,
+                    device=x.device)
+    S = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    launch("tardis_ssd_chunk", ptr(x), *x.stride()[:3], ptr(dt),
+           *dt.stride()[:2], ptr(cum), ptr(B), ptr(C), B.stride(0),
+           B.stride(1), bsh, b, s, nc, chunk, h, p, n, _DTYPES[x.dtype],
+           _DTYPES[B.dtype], ptr(y), ptr(S))
+    ssd_chunk.launches += 1
+    return y, S
+
+
+ssd_chunk.launches = 0

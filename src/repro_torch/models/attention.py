@@ -7,7 +7,9 @@ path.  ``decode_attention`` is single-token attention over a dense cache:
 long caches with one scalar length route to the split-KV decode kernel K5
 (``kernels/decode_attention/csrc/dense_decode.cu``) under the JAX
 package's conditions, with "the tensors are on CUDA" in place of "the
-backend is TPU"; everything else takes the reference.
+backend is TPU"; everything else takes the reference.  ``attend`` (the
+prefill step's attention) sends CUDA calls to the flash-prefill kernel K6
+and keeps the JAX dispatch rule on the CPU.
 """
 from __future__ import annotations
 
@@ -140,10 +142,27 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, use_kernel=None,
                                kv_len=cur_len)
 
 
+def _flash_kernel_eligible(q, k, window: int) -> bool:
+    """K6 takes the call: no window (the TPU kernel has none), whole GQA
+    groups, a (q, k/v) dtype pair and head dim it takes, and CUDA tensors
+    (the JAX rule's "the backend is a TPU")."""
+    from ..kernels.flash_attention.kernel import takes
+    return (window == 0 and q.shape[2] % k.shape[2] == 0 and q.is_cuda
+            and k.is_cuda and takes(q.dtype, k.dtype, q.shape[3]))
+
+
 def attend(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
            kv_len=None, flash_threshold: int = 1024):
-    """Naive for short sequences, blocked flash otherwise (the JAX
-    package's dispatch rule)."""
+    """Prefill attention.  Eligible CUDA calls (``_flash_kernel_eligible``)
+    go to the flash-prefill kernel K6 (``kernels/flash_attention/csrc/
+    flash_prefill.cu``) at any length; every other call follows the JAX
+    package's dispatch rule: naive for short sequences, blocked flash
+    otherwise."""
+    if _flash_kernel_eligible(q, k, window):
+        from ..kernels.flash_attention.ops import \
+            flash_attention as flash_kernel
+        return flash_kernel(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_len=kv_len)
     if q.shape[1] * k.shape[1] <= flash_threshold ** 2:
         return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, kv_len=kv_len)

@@ -12,12 +12,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels.rmsnorm.ref import rmsnorm_ref
+
+
+def _rmsnorm_kernel_eligible(x) -> bool:
+    return x.is_cuda
+
 
 def rmsnorm(x, w, eps: float = 1e-5):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * w.float()).to(x.dtype)
+    """RMSNorm over the last dim: CUDA tensors go to K8
+    (``kernels/rmsnorm/csrc/rmsnorm.cu``), CPU tensors take the plain
+    code."""
+    if _rmsnorm_kernel_eligible(x):
+        from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
+        return rmsnorm_kernel(x, w, eps)
+    return rmsnorm_ref(x, w, eps)
 
 
 def dense_init(generator: torch.Generator, shape, dtype,

@@ -50,6 +50,10 @@ def _causal_conv(u, w):
     return out
 
 
+def _ssd_kernel_eligible(x) -> bool:
+    return x.is_cuda
+
+
 def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     """SSD chunk scan.
 
@@ -57,11 +61,19 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     B, C: (b, s, n); D: (h,).  Returns (y fp32 (b, s, h, p), final_state
     (b, h, p, n)).
 
+    CUDA tensors (``_ssd_kernel_eligible``) go to ``kernels.ssd_scan.ops
+    .ssd_scan`` (the intra-chunk term and chunk states in the kernel K7,
+    ``kernels/ssd_scan/csrc/ssd_chunk.cu``); CPU tensors run the plain
+    code below.
+
     The JAX package's three-operand einsums are contracted pairwise here,
     in the order that keeps the intermediates at (b, nc, q, q, h): ``cb``
     times the decay mask first, then one batched matmul with ``x * dt``
     (a (b, nc, q, q, h, p) product would be p times larger).
     """
+    if _ssd_kernel_eligible(x):
+        from ..kernels.ssd_scan.ops import ssd_scan
+        return ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk
@@ -98,8 +110,17 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     # chunk-boundary states: S_c = sum_j decay(end..j) B_j (x dt)_j
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (b,nc,q,h)
     S = torch.einsum("bcjn,bcjhp->bchpn", Bc, decay_to_end[..., None] * xdt)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                # (b,nc,h)
+    return ssd_inter_chunk(y_intra, S, cum, Cc, x, D, s)
 
+
+def ssd_inter_chunk(y_intra, S, cum, Cc, x, D, s: int):
+    """The sequential part of the scan, shared by the plain code and the
+    kernel's ops wrapper: y_intra (b, nc, q, h, p) and chunk states S
+    (b, nc, h, p, n) in fp32, cum (b, nc, q, h), Cc (b, nc, q, n) fp32,
+    x (b, >= s, h, p).  Returns (y fp32 (b, s, h, p), final state)."""
+    b, nc, chunk, h, p = y_intra.shape
+    n = S.shape[-1]
+    chunk_decay = torch.exp(cum[:, :, -1, :])                # (b,nc,h)
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     s_prev = []
     for c in range(nc):                             # emit the pre-state

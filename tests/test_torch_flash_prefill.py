@@ -1,0 +1,222 @@
+"""The port's causal GQA flash prefill against the JAX package's: the plain
+version (what the port's ``ops.flash_attention`` runs on CPU tensors)
+against the Pallas kernel in interpret mode at the shapes it accepts
+(lengths dividing by 128, or below 128), against the JAX reference at
+ragged lengths with ``q_offset`` / ``kv_len`` (G in {1, 4}, Dh 64 and 80),
+the routing of ``models.attention.attend``, and a CUDA lane holding K6
+against its plain version (skipped where there is no card).  Tolerances:
+fp32 rtol = atol = 2e-4, bf16 3e-2 (``tests/test_kernels.py``).  Every
+case keeps ``kv_len`` above the first query's position: a row with no
+live key is 0 in the kernel and the mean of V in the plain version (the
+CUDA lane asserts the kernel's 0 there)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as T
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import attention as TA
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro.kernels.flash_attention.ref import flash_attention_ref as J_ref
+    from repro.models import attention as JA
+except ImportError:      # the card's machine has no JAX: only the CUDA
+    jnp = J_ref = JA = None  # lane (-m cuda) runs there
+
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def J(q, k, v, *, causal, q_offset, kv_len):
+    """The JAX ``ops.flash_attention`` steps (transpose to (B, H, S, Dh),
+    pad Dh to 128) around the Pallas kernel in interpret mode, with
+    ``kv_len`` kept static as the kernel takes it (the jitted ops wrapper
+    would trace it)."""
+    dh = q.shape[-1]
+    pad = [(0, 0)] * 3 + [(0, (-dh) % 128)]
+    qt, kt, vt = (jnp.pad(a, pad).transpose(0, 2, 1, 3) for a in (q, k, v))
+    out = flash_attention_bhsd(qt, kt, vt, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, scale=dh ** -0.5,
+                               interpret=True)
+    return out.transpose(0, 2, 1, 3)[..., :dh]
+
+
+def _inputs(b, sq, skv, h, hk, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hk, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,q_offset,kv_len", [
+    (1, 128, 128, 4, 1, 64, 0, None),       # G = 4, whole blocks
+    (2, 256, 256, 2, 2, 80, 0, None),       # G = 1, Dh 80, 2 x 2 blocks
+    (1, 16, 80, 8, 2, 64, 64, 80),          # the paged suffix prefill
+    (1, 64, 96, 4, 4, 80, 32, 90),          # suffix, kv_len < Skv
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas(b, sq, skv, h, hk, d, q_offset, kv_len,
+                                    dtype):
+    arrs = _inputs(b, sq, skv, h, hk, d, sq + skv + d)
+    jd = getattr(jnp, dtype)
+    want = J(*(jnp.asarray(a, jd) for a in arrs), causal=True,
+             q_offset=q_offset, kv_len=kv_len)
+    td = getattr(torch, dtype)
+    n0 = FK.flash_prefill.launches
+    got = T.flash_attention(*(torch.from_numpy(a).to(td) for a in arrs),
+                            causal=True, q_offset=q_offset, kv_len=kv_len)
+    assert FK.flash_prefill.launches == n0      # CPU: the plain version
+    assert got.dtype == td and got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,q_offset,kv_len,causal", [
+    (2, 50, 50, 8, 2, 64, 0, None, True),   # ragged prompt, G = 4
+    (1, 37, 37, 4, 4, 80, 0, None, True),   # G = 1, Dh 80
+    (2, 16, 96, 8, 2, 64, 70, 86, True),    # suffix in a longer cache
+    (1, 9, 130, 4, 1, 80, 121, 130, True),
+    (2, 20, 45, 4, 1, 64, 0, 33, False),    # non-causal, kv_len < Skv
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax_ref_at_ragged_shapes(
+        b, sq, skv, h, hk, d, q_offset, kv_len, causal, dtype):
+    arrs = _inputs(b, sq, skv, h, hk, d, 7 * sq + skv)
+    jd = getattr(jnp, dtype)
+    want = J_ref(*(jnp.asarray(a, jd) for a in arrs), causal=causal,
+                 q_offset=q_offset, kv_len=kv_len)
+    td = getattr(torch, dtype)
+    got = flash_attention_ref(*(torch.from_numpy(a).to(td) for a in arrs),
+                              causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+    # the wrapper on CPU tensors is that plain version
+    wrapped = FK.flash_prefill(*(torch.from_numpy(a).to(td) for a in arrs),
+                               causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
+    assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("sq,skv,window", [(16, 16, 0), (40, 40, 8),
+                                           (1100, 1100, 0)])
+def test_attend_routing_keeps_the_jax_rule_on_cpu(monkeypatch, sq, skv,
+                                                  window):
+    """On CPU tensors ``attend`` follows the JAX package's dispatch bit for
+    bit in value (reference below 1024^2 scores, blocked flash above);
+    with the device check forced it takes the ops wrapper (the kernel's
+    plain version here); a window never goes to the kernel."""
+    arrs = _inputs(1, sq, skv, 4, 2, 16, sq + window)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    assert not TA._flash_kernel_eligible(q, k, window)
+    n0 = FK.flash_prefill.launches
+    got = TA.attend(q, k, v, causal=True, window=window)
+    want = JA.attend(*(jnp.asarray(a) for a in arrs), causal=True,
+                     window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+    if sq * skv <= 1024 ** 2:
+        ref = TA.reference_attention(q, k, v, causal=True, window=window)
+    else:
+        ref = TA.flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(got, ref)
+    monkeypatch.setattr(TA, "_flash_kernel_eligible",
+                        lambda q, k, window: window == 0)
+    routed = TA.attend(q, k, v, causal=True, window=window)
+    if window:
+        assert torch.equal(routed, got)
+    else:
+        assert torch.equal(routed, flash_attention_ref(q, k, v, causal=True))
+    assert FK.flash_prefill.launches == n0
+
+
+def test_flash_wrapper_checks_shapes():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 6, 4, 16, 0))
+    with pytest.raises(ValueError):             # 6 heads over 4 KV heads
+        FK.flash_prefill(q, k, v)
+    with pytest.raises(ValueError):
+        FK.flash_prefill(q[..., :4, :], k, v[:, :4])
+    assert FK.takes(torch.float32, torch.bfloat16, 80)
+    assert not FK.takes(torch.bfloat16, torch.float32, 64)
+    assert not FK.takes(torch.float32, torch.float32, 260)
+    assert not FK.takes(torch.float32, torch.float32, 36)
+
+
+# --- CUDA lane ----------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode); run on the card with -m cuda")
+    return torch.device("cuda")
+
+
+PAIRS = {"fp32": (torch.float32, torch.float32, TOL["float32"]),
+         "bf16": (torch.bfloat16, torch.bfloat16, TOL["bfloat16"]),
+         "fp32/bf16": (torch.float32, torch.bfloat16, TOL["float32"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,q_offset,kv_len,causal", [
+    (2, 300, 300, 32, 4, 64, 0, None, True),   # tinyllama's heads, ragged
+    (1, 200, 200, 8, 8, 80, 0, None, True),    # zamba2's heads
+    (1, 16, 96, 32, 4, 64, 64, 80, True),      # paged suffix in a cache
+    (2, 7, 7, 3, 1, 256, 0, None, True),       # G = 3, Dh 256
+    (1, 70, 130, 6, 2, 8, 60, 130, True),      # Dh 8
+    (2, 65, 129, 4, 2, 128, 0, 100, False),    # non-causal, kv_len < Skv
+])
+def test_cuda_flash_prefill_matches_plain(cuda, pair, b, sq, skv, h, hk, d,
+                                          q_offset, kv_len, causal):
+    qd, kd, tol = PAIRS[pair]
+    arrs = _inputs(b, sq, skv, h, hk, d, sq * 3 + d)
+    q = torch.from_numpy(arrs[0]).to(cuda, qd)
+    k, v = (torch.from_numpy(a).to(cuda, kd) for a in arrs[1:])
+    n0 = FK.flash_prefill.launches
+    got = T.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_len=kv_len)
+    assert FK.flash_prefill.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
+    assert got.dtype == qd
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hk,d", [(2, 64), (8, 80), (1, 128)])
+def test_cuda_flash_prefill_bf16_within_its_p_rounding(cuda, hk, d):
+    """The bf16 pair's tensor-core variant rounds P to bf16 for P.V (l sums
+    the fp32 P): each weight within 2^-9 of itself moves the output by at
+    most 2^-9 max|v| from the plain version's, then both round once to
+    bf16 (one rounding step apart at most)."""
+    arrs = _inputs(1, 1024, 1024, 8, hk, d, d)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
+    got = FK.flash_prefill(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9 * float(v.abs().max()) + 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prefill_reads_cache_views_and_masks_dead_rows(cuda):
+    """A layer view of a stacked (L, B, T, Hkv, Dh) cache is read in place;
+    a row with no live key gives 0 (the TPU kernel's guard)."""
+    arrs = _inputs(2, 16, 96, 8, 2, 64, 5)
+    q = torch.from_numpy(arrs[0]).to(cuda)
+    k, v = (torch.from_numpy(a).to(cuda) for a in arrs[1:])
+    stacked = torch.stack([k, k, v])
+    got = FK.flash_prefill(q, stacked[1], stacked[2], q_offset=64, kv_len=80)
+    want = flash_attention_ref(q, k, v, q_offset=64, kv_len=80)
+    torch.testing.assert_close(got, want, **TOL["float32"])
+    dead = FK.flash_prefill(q, k, v, causal=False, kv_len=0)
+    assert torch.equal(dead, torch.zeros_like(dead))
+    n0 = FK.flash_prefill.launches
+    TA.attend(q, k, v, causal=True, q_offset=64, kv_len=80)   # routes to K6
+    TA.attend(q, k, v, causal=True, q_offset=64, kv_len=80, window=16)
+    assert FK.flash_prefill.launches == n0 + 1
+    with pytest.raises(TypeError):               # bf16 q over fp32 K/V
+        FK.flash_prefill(q.bfloat16(), k, v)

@@ -1,0 +1,185 @@
+"""The port's SSD chunk scan against the JAX package's: the plain version of
+the intra-chunk kernel against the Pallas kernel in interpret mode (the
+folded (G, Q, N) contract, an overflowing decay included), the port's
+``ops.ssd_scan`` on CPU tensors against the JAX ``ops.ssd_scan`` (interpret
+mode) and ``models.ssm.ssd_chunked`` at ragged lengths, the kernel
+wrapper's shared and per-head B/C, the routing of
+``models.ssm.ssd_chunked``, and a CUDA lane holding K7 against its plain
+version (skipped where there is no card).  Tolerance: fp32 rtol = atol =
+2e-4 (``tests/test_kernels.py``)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan import kernel as SK
+from repro_torch.kernels.ssd_scan import ops as T
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+                                              ssd_intra_chunk_ref)
+from repro_torch.models import ssm as TS
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan.kernel import ssd_intra_chunk as J_intra
+    from repro.kernels.ssd_scan.ops import ssd_scan as J_scan
+    from repro.models import ssm as JS
+except ImportError:      # the card's machine has no JAX: only the CUDA
+    jnp = J_intra = J_scan = JS = None  # lane (-m cuda) runs there
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _scan_inputs(b, s, h, p, n, seed, dt_scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, s, h)))) * dt_scale) \
+        .astype(np.float32)
+    A = -np.exp(rng.standard_normal(h) * 0.5).astype(np.float32)
+    B = rng.standard_normal((b, s, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, n)).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
+def _folded(g, q, n, p, seed, steep=False):
+    rng = np.random.default_rng(seed)
+    C = rng.standard_normal((g, q, n)).astype(np.float32)
+    B = rng.standard_normal((g, q, n)).astype(np.float32)
+    xdt = rng.standard_normal((g, q, p)).astype(np.float32)
+    step = 4.0 if steep else 0.05       # steep: exp(cum_i - cum_j) = inf
+    cum = -np.cumsum(np.abs(rng.standard_normal((g, q, 1))) * step,
+                     axis=1).astype(np.float32)
+    return C, B, xdt, cum
+
+
+@pytest.mark.parametrize("g,q,n,p,steep", [
+    (3, 64, 16, 16, False), (2, 128, 32, 8, False), (2, 32, 8, 16, True)])
+def test_intra_chunk_plain_matches_pallas(g, q, n, p, steep):
+    arrs = _folded(g, q, n, p, q + n, steep)
+    jy, jS = J_intra(*(jnp.asarray(a) for a in arrs), interpret=True)
+    ty, tS = ssd_intra_chunk_ref(*(_t(a) for a in arrs))
+    assert bool(torch.isfinite(ty).all() and torch.isfinite(tS).all())
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tS.numpy(), np.asarray(jS), **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 8, 16, 32),       # whole chunks
+    (2, 37, 4, 8, 16, 16),       # s not a multiple of the chunk
+    (1, 10, 3, 16, 8, 16),       # one partial chunk
+    (1, 70, 2, 4, 32, 32),
+])
+def test_ssd_scan_plain_matches_jax(b, s, h, p, n, chunk):
+    arrs = _scan_inputs(b, s, h, p, n, s * 10 + h)
+    n0 = SK.ssd_chunk.launches
+    ty, tstate = T.ssd_scan(*(_t(a) for a in arrs), chunk=chunk)
+    assert SK.ssd_chunk.launches == n0          # CPU: the plain version
+    jy, jstate = J_scan(*(jnp.asarray(a) for a in arrs), chunk=chunk,
+                        interpret=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), **TOL)
+    ry, rstate = JS.ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(ry), **TOL)
+    np.testing.assert_allclose(tstate.numpy(), np.asarray(rstate), **TOL)
+
+
+def test_ssd_chunk_wrapper_shared_and_per_head_groups():
+    """One (b, s, n) group read by every head equals its copy per head;
+    positions past s act as the chunk's zero padding."""
+    x, dt, A, B, C, _D = (_t(a) for a in _scan_inputs(2, 21, 3, 8, 16, 4))
+    chunk = 8
+    dtc = torch.nn.functional.pad(dt, (0, 0, 0, 3)).reshape(2, 3, chunk, 3)
+    cum = torch.cumsum(dtc * A, dim=2)
+    y1, S1 = SK.ssd_chunk(x, dt, cum, B, C, chunk=chunk)
+    per_head = (B[:, :, None].expand(2, 21, 3, 16),
+                C[:, :, None].expand(2, 21, 3, 16))
+    y2, S2 = SK.ssd_chunk(x, dt, cum, *per_head, chunk=chunk)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    torch.testing.assert_close(S1, S2, rtol=0, atol=0)
+    assert y1.shape == (2, 3, chunk, 3, 8) and S1.shape == (2, 3, 3, 8, 16)
+    with pytest.raises(ValueError):
+        SK.ssd_chunk(x, dt, cum[:, :2], B, C, chunk=chunk)
+
+
+def test_ssd_chunked_routing(monkeypatch):
+    """On the CPU ``ssd_chunked`` keeps the plain code; routed to the
+    kernel it takes ``ops.ssd_scan`` (the kernel's plain version here)."""
+    arrs = tuple(_t(a) for a in _scan_inputs(1, 40, 2, 8, 16, 9))
+    assert not TS._ssd_kernel_eligible(arrs[0])
+    n0 = SK.ssd_chunk.launches
+    plain = TS.ssd_chunked(*arrs, 16)
+    monkeypatch.setattr(TS, "_ssd_kernel_eligible", lambda x: True)
+    routed = TS.ssd_chunked(*arrs, 16)
+    assert SK.ssd_chunk.launches == n0
+    for a, b in zip(plain, routed):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+# --- CUDA lane ----------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode); run on the card with -m cuda")
+    return torch.device("cuda")
+
+
+def _cum(dt, A, chunk):
+    b, s, h = dt.shape
+    pad = (-s) % chunk
+    dtc = torch.nn.functional.pad(dt, (0, 0, 0, pad)).reshape(
+        b, -1, chunk, h)
+    return torch.cumsum(dtc * A, dim=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dt_scale", [
+    (1, 600, 16, 64, 64, 256, 1.0),     # zamba2's chunk and widths, ragged
+    (2, 256, 3, 64, 128, 256, 1.0),     # mamba2's state 128
+    (1, 100, 5, 24, 40, 64, 1.0),       # widths off the tile
+    (1, 64, 9, 16, 16, 32, 30.0),       # steep decay: exp overflows j > i
+])
+def test_cuda_ssd_chunk_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
+                                      dt_scale):
+    x, dt, A, B, C, _D = _scan_inputs(b, s, h, p, n, s + n, dt_scale)
+    td = getattr(torch, dtype)
+    conv = torch.from_numpy(np.concatenate(
+        [x.reshape(b, s, h * p), B, C], -1)).to(cuda, td)
+    xs = conv[..., :h * p].reshape(b, s, h, p)     # the model's views
+    Bs, Cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dtt = torch.from_numpy(dt).to(cuda)
+    cum = _cum(dtt, torch.from_numpy(A).to(cuda), chunk)
+    n0 = SK.ssd_chunk.launches
+    y, S = SK.ssd_chunk(xs, dtt, cum, Bs, Cs, chunk=chunk)
+    assert SK.ssd_chunk.launches == n0 + 1
+    wy, wS = ssd_chunk_ref(xs, dtt, cum, Bs, Cs, chunk=chunk)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(S).all())
+    torch.testing.assert_close(y, wy, **TOL)
+    torch.testing.assert_close(S, wS, **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_per_head_groups_and_routing(cuda, monkeypatch):
+    x, dt, A, B, C, D = (_t(a).to(cuda) for a in
+                         _scan_inputs(2, 300, 4, 32, 16, 1))
+    cum = _cum(dt, A, 128)
+    Bh = torch.randn((2, 300, 4, 16), device=cuda)
+    Ch = torch.randn((2, 300, 4, 16), device=cuda)
+    y, S = SK.ssd_chunk(x, dt, cum, Bh, Ch, chunk=128)
+    wy, wS = ssd_chunk_ref(x, dt, cum, Bh, Ch, chunk=128)
+    torch.testing.assert_close(y, wy, **TOL)
+    torch.testing.assert_close(S, wS, **TOL)
+    n0 = SK.ssd_chunk.launches
+    got = TS.ssd_chunked(x, dt, A, B, C, D, 128)       # routes to K7
+    assert SK.ssd_chunk.launches == n0 + 1
+    monkeypatch.setattr(TS, "_ssd_kernel_eligible", lambda x: False)
+    want = TS.ssd_chunked(x, dt, A, B, C, D, 128)      # the plain code
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+    with pytest.raises(ValueError):                    # chunk > 256
+        SK.ssd_chunk(x, dt, _cum(dt, A, 512), B, C, chunk=512)
