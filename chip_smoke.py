@@ -30,13 +30,18 @@ Phases (any failure exits non-zero; nothing is caught):
      (the card's activity only: idle share, device time by kind);
   4. the same requests at full width and 2 layers on the card and on the
      CPU (the plain versions, by the caller's explicit device="cpu"), bf16
-     weights: identical integer coherence counters and the first tick's
-     logits within the bf16 tolerance; then the wave path the same way --
+     weights (norm weights drawn too): a serving run on each device --
+     identical integer coherence counters, greedy agreement and the
+     retired max ratio printed -- then the teacher-forced check: the card
+     in bf16, the CPU in bf16 and an fp32 anchor (the same weights
+     widened, on the CPU) fed the anchor's greedy tokens through the
+     prefill and 4 decode steps, and at every step the card's logits at
+     most 2x as far (L2) from the anchor as the CPU's, plus 1e-3 of the
+     anchor's norm (``norm_check``); then the wave path the same way --
      tinyllama at 2 layers in bf16 and zamba2 at 6 layers (one group) in
      fp32 weights (its bf16 arithmetic is chaotic; the bf16 run's distance
-     is printed), 2048-slot caches, short prompts -- the first decode
-     step's logits held for every request both devices fed the same first
-     token (at most one may differ, at a bf16 tie of the CPU's logits);
+     is printed; its first decode step held to the bf16 tolerance), 2048-
+     slot caches, short prompts;
   5. the kernel JSON line, then the result line.
 Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
 version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
@@ -53,13 +58,22 @@ tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8 launch
 on the paged path and both wave paths and K7 on zamba2's.
 
     python3 chip_smoke.py --phase4-seeds 0,1,2,3
+    python3 chip_smoke.py --phase4-mutants 0,1,2,3
 
-builds the kernels and prints phase 4's readings (measured, not held) for
-weights and requests drawn from each seed, one JSON line per seed.
+build the kernels and print phase 4's readings (measured, not held) for
+weights and requests drawn from each seed: ``--phase4-seeds`` one JSON
+line per seed (the retired max ratio and the norm check of each bf16
+lane, the zamba2 lane's ratio); ``--phase4-mutants`` each bf16 lane clean
+and under each wrapper-level off-by-one (K6 q_offset + 1, K4 lengths - 1,
+K5 kv_len - 1, K8's weight rolled), both checks' readings a line, then
+which seeds each check fails for each injection (exit 1 if the new check
+misses one the retired check caught).  Phase 1 also counts the HGMMA
+instructions (K6's wgmma) in the library's SASS.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -169,6 +183,13 @@ def phase1_card_and_build():
     _build.library()
     log(f"built {lib.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    # K6's bf16 variant must issue wgmma: HGMMA in the library's SASS
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    n_hgmma = sass.count("HGMMA")
+    log(f"cuobjdump -sass {lib.name}: {n_hgmma} HGMMA instructions")
+    assert n_hgmma, "no HGMMA in the kernel library: K6 issues no wgmma"
     return smi
 
 
@@ -843,38 +864,52 @@ def phase3_wave_paths(smi):
     return out
 
 
+# Phase 4's bf16 check (``norm_check``): at every teacher-forced step the
+# card's logits may lie at most NORM_FACTOR times as far (L2 over all rows)
+# from an fp32 anchor as the plain bf16 path's on the CPU, plus
+# NORM_FLOOR of the anchor's norm.  Both are fixed by that principle (the
+# card's kernels round at most twice as far from fp32 as the plain bf16
+# path does), not fitted to readings.
+NORM_FACTOR = 2.0
+NORM_FLOOR = 1e-3
+PHASE4_STEPS = 4        # teacher-forced decode steps after the prefill
+# the wrapper-level off-by-ones of ``--phase4-mutants`` and the bf16 lanes
+# whose path calls each wrapper
+MUTANTS = {"K6 q_offset+1": ("paged", "wave"),
+           "K4 lengths-1": ("paged",),
+           "K5 kv_len-1": ("wave",),
+           "K8 weight rolled": ("paged", "wave")}
+
+
 def _hold_logits(label, pre_c, tok_g, tok_c, step_g, step_c, hold=True):
-    """Card vs CPU logits of the requests in the first decode step:
-    ``pre_c`` their prefill logits on the CPU (R, V), ``tok_*`` the token
-    each device fed them (its argmax of its prefill rows) and ``step_*``
-    that step's logits (R, V).  Every row both devices fed the same token
-    is held to the bf16 tolerance at that step.  A row whose first token
-    differs would compare logits of different inputs there; at most one
-    row may, and only at a tie: the CPU's prefill logits of the two tokens
-    within one bf16 rounding step of the top one (an exact bf16 tie on the
-    CPU is broken by argmax order).  ``hold=False`` only measures.
-    Returns (the first step's max |err| over the rows held there, its
-    worst |err| / (atol + rtol |v|), the number of rows whose first token
-    differs)."""
+    """Card vs CPU logits of the requests in the first decode step of a
+    serving run: ``pre_c`` their prefill logits on the CPU (R, V),
+    ``tok_*`` the token each device fed them (its argmax of its prefill
+    rows) and ``step_*`` that step's logits (R, V).  Held (``hold``; the
+    zamba2 fp32 lane): every first token the same on both devices and
+    every row within the bf16 tolerance.  Returns (the max |err| and the
+    worst |err| / (atol + rtol |v|) over the rows both devices fed the
+    same token, the number of rows whose first token differs, whether each
+    such row sat at a tie -- the CPU's prefill logits of the two tokens
+    within one bf16 rounding step of the top one).  The last is only a
+    reading: the retired bf16 check exempted one such row; with the bf16
+    lanes teacher-forced no held lane needs it."""
     import numpy as np
     same = tok_g == tok_c
     flips = int((~same).sum())
-    assert not hold or flips <= 1, (
+    ties = all(pre_c[i, tok_c[i]] - pre_c[i, tok_g[i]]
+               <= 2 ** -7 * abs(pre_c[i, tok_c[i]])
+               for i in np.flatnonzero(~same))
+    assert not hold or flips == 0, (
         f"{label}: {flips} first tokens differ card vs cpu")
-    for i in np.flatnonzero(~same):
-        top, alt = pre_c[i, tok_c[i]], pre_c[i, tok_g[i]]
-        assert not hold or top - alt <= 2 ** -7 * abs(top), (
-            f"{label}: first token of row {i} differs card vs cpu "
-            f"({tok_g[i]} vs {tok_c[i]}) without a tie: cpu logits {alt} "
-            f"vs {top}")
     if hold:
-        np.testing.assert_allclose(step_g[same], step_c[same], **BF16,
+        np.testing.assert_allclose(step_g, step_c, **BF16,
                                    err_msg=f"{label}: first-step logits")
     if not same.any():
-        return 0.0, 0.0, flips
+        return 0.0, 0.0, flips, ties
     d = np.abs(step_g[same] - step_c[same])
     lim = BF16["atol"] + BF16["rtol"] * np.abs(step_c[same])
-    return float(d.max()), float((d / lim).max()), flips
+    return float(d.max()), float((d / lim).max()), flips, ties
 
 
 def _wave_logits(tg, tc):
@@ -896,66 +931,335 @@ def _wave_logits(tg, tc):
             sg["logits"][:, -1], sc["logits"][:, -1]), every
 
 
-def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True):
+def _memo(memo, key, fn):
+    """``fn()``, computed once per ``key`` where a ``memo`` dict is given
+    (the CPU runs of one seed, shared by ``--phase4-mutants``' runs)."""
+    if memo is None:
+        return fn()
+    if key not in memo:
+        memo[key] = fn()
+    return memo[key]
+
+
+def _counters(rg, rc):
+    """The integer coherence counters of two reports, and those that
+    differ as {name: (card, cpu)}."""
+    import numpy as np
+    ints = [k for k, v in rg.items() if isinstance(v, (int, np.integer))
+            and not isinstance(v, bool)]
+    return ints, {k: (rg[k], rc[k]) for k in ints if rg[k] != rc[k]}
+
+
+def _tf_paged(cfg, params, dev, reqs, fed=None, n_steps=PHASE4_STEPS,
+              chunk=16, n_sys=64):
+    """The paged lane, teacher-forced through the port's entry points over
+    a pool laid out as the serving run lays it out: the shared system
+    prompt's KV (``prefill``) in ``n_sys // chunk`` shared blocks, each
+    request's suffix prefilled against it (``prefill_suffix``: K6 at
+    q_offset ``n_sys``) into its own pages, then ``n_steps`` batched
+    ``decode_step_paged`` steps (K4, K3's scatter) fed ``fed`` (R,
+    n_steps) -- or, with ``fed=None``, each step's argmax.  Pool and
+    caches in the weights' dtype.  Returns ([(R, V) logits of the prefill,
+    then of each step], the fed tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.tardis_lease.kernel import LANES
+    from repro_torch.models import (decode_step_paged, pool_layout, prefill,
+                                    prefill_suffix)
+    dtype = params["embed"].dtype
+    (spec,) = pool_layout(cfg)
+    row = -(-(spec.offset + spec.token_elems) // LANES) * LANES
+
+    def token_rows(cache, lo, hi):      # ServingCluster._cache_token_rows
+        m = hi - lo
+        kv = [cache[c][:, 0, lo:hi].permute(1, 0, 2, 3).reshape(m, -1)
+              for c in spec.cache_keys]
+        out = torch.zeros((m, row), dtype=dtype, device=dev)
+        out[:, spec.offset:spec.offset + spec.token_elems] = torch.cat(kv, 1)
+        return out
+
+    plens = np.asarray([len(r.prompt) for r in reqs], np.int32)
+    n_shared = n_sys // chunk
+    n_pages = -(-(plens + n_steps) // chunk)
+    pool = torch.zeros(((n_shared + int((n_pages - n_shared).sum()))
+                        * chunk, row), dtype=dtype, device=dev)
+    system = reqs[0].prompt[:n_sys]
+    pre, _ = prefill(cfg, params, {"tokens": torch.as_tensor(
+        system[None], device=dev)}, n_sys, dtype=dtype)
+    pool[:n_sys] = token_rows(pre, 0, n_sys)    # blocks 0 .. n_shared - 1
+    page_rows = np.zeros((len(reqs), 32), np.int32)
+    free = n_shared
+    steps = [[]]
+    for i, (r, plen) in enumerate(zip(reqs, plens)):
+        assert np.array_equal(r.prompt[:n_sys], system)
+        page_rows[i, :n_shared] = np.arange(n_shared)
+        page_rows[i, n_shared:n_pages[i]] = np.arange(
+            free, free + n_pages[i] - n_shared)
+        free += n_pages[i] - n_shared
+        cache_len = -(-plen // chunk) * chunk
+        toks = np.pad(r.prompt[n_sys:], (0, cache_len - plen))
+        cache = {c: torch.zeros((cfg.n_layers, 1, cache_len) + tuple(
+            pre[c].shape[3:]), dtype=dtype, device=dev)
+            for c in spec.cache_keys}
+        for c in spec.cache_keys:
+            cache[c][:, :, :n_sys] = pre[c]
+        cache, lg = prefill_suffix(
+            cfg, params, {"tokens": torch.as_tensor(toks[None], device=dev)},
+            cache, n_sys, last_idx=plen - n_sys - 1)
+        pos = np.arange(n_sys, plen)
+        idx = page_rows[i, pos // chunk].astype(np.int64) * chunk + pos % chunk
+        pool[torch.as_tensor(idx, device=dev)] = token_rows(cache, n_sys, plen)
+        steps[0].append(lg[0, -1].float().cpu().numpy())
+    steps[0] = np.stack(steps[0])
+    fed_out = np.zeros((len(reqs), n_steps), np.int32)
+    pr = torch.as_tensor(page_rows, device=dev)
+    for j in range(n_steps):
+        fed_out[:, j] = steps[-1].argmax(-1) if fed is None else fed[:, j]
+        pool, lg = decode_step_paged(
+            cfg, params, pool, pr, torch.as_tensor(plens + j, device=dev),
+            torch.as_tensor(fed_out[:, j:j + 1], device=dev), chunk=chunk)
+        steps.append(lg[:, -1].float().cpu().numpy())
+    return steps, fed_out
+
+
+def _tf_wave(cfg, params, dev, reqs, fed=None, n_steps=PHASE4_STEPS,
+             cache_len=2048, wave=4):
+    """The wave lane, teacher-forced through ``prefill`` (K6, K8) and
+    ``decode_step`` (K5 at a 2048-slot cache) as ``DecodeReplica.serve``
+    drives them: waves of ``wave`` requests right-padded to their longest
+    prompt, decoding in lockstep at a device-scalar position, fed ``fed``
+    (R, n_steps) -- or, with ``fed=None``, each step's argmax.  Caches in
+    the weights' dtype.  Returns ([(R, V) logits of the prefill's last
+    position, then of each step], the fed tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, prefill
+    dtype = params["embed"].dtype
+    steps = [[] for _ in range(n_steps + 1)]
+    fed_out = np.zeros((len(reqs), n_steps), np.int32)
+    for w0 in range(0, len(reqs), wave):
+        ws = reqs[w0:w0 + wave]
+        s = max(len(r.prompt) for r in ws)
+        toks = np.zeros((len(ws), s), np.int32)
+        for i, r in enumerate(ws):
+            toks[i, :len(r.prompt)] = r.prompt
+        cache, lg = prefill(cfg, params, {"tokens": torch.as_tensor(
+            toks, device=dev)}, cache_len, dtype=dtype)
+        steps[0].append(lg[:, -1].float().cpu().numpy())
+        cur = torch.tensor(s, dtype=torch.int32, device=dev)
+        for j in range(n_steps):
+            rows = slice(w0, w0 + len(ws))
+            fed_out[rows, j] = (steps[j][-1].argmax(-1) if fed is None
+                                else fed[rows, j])
+            cache, lg = decode_step(cfg, params, cache, torch.as_tensor(
+                fed_out[rows, j:j + 1], device=dev), cur)
+            steps[j + 1].append(lg[:, -1].float().cpu().numpy())
+            cur = cur + 1
+    return [np.concatenate(s) for s in steps], fed_out
+
+
+def norm_check(card, cpu, anchor, factor=NORM_FACTOR, floor=NORM_FLOOR):
+    """Phase 4's bf16 check over the steps of three teacher-forced runs
+    ((R, V) logits each): at every step ``e_card = |card - anchor|_2 <=
+    factor * e_cpu + floor * |anchor|_2`` with ``e_cpu = |cpu - anchor|_2``.
+    Returns (whether every step holds, the readings of each step)."""
+    import numpy as np
+    steps = []
+    for c, p, a in zip(card, cpu, anchor):
+        a = a.astype(np.float64)
+        e_card = float(np.linalg.norm(c - a))
+        e_cpu = float(np.linalg.norm(p - a))
+        limit = factor * e_cpu + floor * float(np.linalg.norm(a))
+        steps.append(dict(e_card=e_card, e_cpu=e_cpu, limit=limit,
+                          ok=e_card <= limit))
+    return all(s["ok"] for s in steps), steps
+
+
+def _teacher_forced(label, lane, cfg, params_bf16, reqs, card, hold, memo,
+                    key):
+    """Phase 4's check of a bf16 lane (``lane``: "paged" or "wave"):
+    three teacher-forced runs -- the card in bf16 with its kernels, the
+    CPU in bf16 with the plain versions, and the anchor, the same weights
+    widened to fp32 on the CPU, whose greedy tokens the other two are fed
+    -- held to ``norm_check`` (``hold``) and printed.  Returns the
+    readings."""
+    import torch
+    run = _tf_paged if lane == "paged" else _tf_wave
+    anchor, fed = _memo(memo, key + ("anchor",), lambda: run(
+        cfg, _cast(params_bf16, torch.float32), "cpu", reqs))
+    cpu, _ = _memo(memo, key + ("cpu",), lambda: run(
+        cfg, params_bf16, "cpu", reqs, fed))
+    got, _ = run(cfg, _cast(params_bf16, device=card), card, reqs, fed)
+    ok, steps = norm_check(got, cpu, anchor)
+    ratio = max(s["e_card"] / max(s["e_cpu"], 1e-30) for s in steps)
+    worst = max(s["e_card"] / s["limit"] for s in steps)
+    log(f"{label}: teacher-forced (prefill + {len(steps) - 1} steps, "
+        f"{len(reqs)} rows): e_card / e_cpu per step "
+        + ", ".join(f"{s['e_card']:.4g}/{s['e_cpu']:.4g}" for s in steps)
+        + f"; worst e_card / e_cpu {ratio:.3f}, worst e_card / limit "
+        f"{worst:.3f} (limit {NORM_FACTOR:g} e_cpu + {NORM_FLOOR:g} "
+        f"|anchor|): {'holds' if ok else 'FAILS'}")
+    if hold:
+        assert ok, f"{label}: the card's logits lie more than " \
+            f"{NORM_FACTOR:g}x as far from the fp32 anchor as the CPU's: " \
+            f"{steps}"
+    return dict(new_ok=ok, new_ratio=ratio, new_worst=worst)
+
+
+def _phase4_params(cfg, seed):
+    """Phase 4's weights: drawn in bf16 on the CPU from ``seed``, with the
+    norms' weights (ones at init) drawn too, as 1 + N(0, 0.1^2), so that a
+    fault in how K8 reads its weight changes the logits."""
+    import torch
+    from repro_torch.models import init_params
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    params = init_params(cfg, gen, torch.bfloat16)
+
+    def draw(tree):
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                draw(v)
+            elif str(k).endswith(("norm", "norm_w")):
+                tree[k] = (1 + 0.1 * torch.randn(v.shape, generator=gen)
+                           ).to(v.dtype)
+    draw(params)
+    return params
+
+
+def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
+                       cfg=None):
+    """The paged lane, full width at 2 layers (or ``cfg``), bf16 weights.
+    A serving run on the card and one on the CPU (the plain versions, by
+    the explicit device="cpu"): identical integer coherence counters
+    (held), greedy agreement and the retired check's reading -- the first
+    tick's worst |err| / (3e-2 + 3e-2 |cpu|) -- printed.  Then the
+    teacher-forced norm check (``_teacher_forced``), held.  ``hold=False``
+    only measures; ``memo`` keeps a seed's CPU runs.  Returns the
+    readings, ``old_ok`` the retired check's verdict."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime import Request
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
+    params = _phase4_params(cfg, seed)
+
+    def serve(dev):
+        cluster, done, report, dt = _serve(cfg, _cast(params, device=dev),
+                                           dev, 256, 128, trace=True,
+                                           seed=seed)
+        return done, report, cluster.trace, dt
+
+    dg, rg, tg, sg = serve(card)
+    dc, rc, tc, sc = _memo(memo, ("paged serve", seed), lambda: serve("cpu"))
+    ints, bad = _counters(rg, rc)
+    assert not hold or not bad, f"coherence counters differ card vs cpu: {bad}"
+    first_g = next(e for e in tg if e["ev"] == "tick")
+    first_c = next(e for e in tc if e["ev"] == "tick")
+    d = np.abs(first_g["logits"] - first_c["logits"])
+    ratio = float((d / (BF16["atol"] + BF16["rtol"]
+                        * np.abs(first_c["logits"]))).max())
+    # each admission's prefill logits by request (printed)
+    ag = {e["rid"]: e["logits"] for e in tg if e["ev"] == "admit"}
+    ac = {e["rid"]: e["logits"] for e in tc if e["ev"] == "admit"}
+    every = max(float(np.abs(ag[r] - ac[r]).max()) for r in ag)
+    same = sum(int(a == b) for x, y in zip(dg, dc)
+               for a, b in zip(x.output, y.output))
+    total = sum(len(x.output) for x in dg)
+    label = f"card vs cpu ({smi}; seed {seed}; full width, 2 layers)"
+    log(f"{label}: {len(ints) - len(bad)} of {len(ints)} integer counters "
+        f"identical; retired check: first-tick logits max |err| "
+        f"{float(d.max()):.4g} (worst {ratio:.3f} of 3e-2 + 3e-2 |v|; "
+        f"printed); prefill logits max |err| {every:.4g} (printed); greedy "
+        f"tokens agree {same}/{total}; card {sg:.2f} s, cpu {sc:.2f} s")
+    reqs = _requests(Request, np, cfg.vocab, seed=seed)
+    new = _teacher_forced(label, "paged", cfg, params, reqs, card, hold,
+                          memo, ("paged", seed))
+    return dict(old_ratio=ratio, old_ok=not bad and ratio <= 1, **new)
+
+
+def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True, memo=None,
+                            card="cuda", archs=None, cfgs=None):
     """The wave path on the card and on the CPU: tinyllama at 2 layers
     with bf16 weights and zamba2 at 6 (one group) with fp32 weights, full
-    width, 2048-slot caches (bf16 in both, as the path makes them; K5 on
-    the card, its plain version on the CPU), short prompts: identical
-    integer counters, the first step's logits within the bf16 tolerance
-    (``_hold_logits``).  zamba2 runs in fp32 (weights drawn in bf16, then
-    widened) because its bf16 arithmetic is chaotic: the same weights run
-    in bf16 on the card land far from the fp32 logits (printed), so two
-    bf16 runs that round a few values differently land ~0.1 apart.
-    ``hold=False`` only measures.  Returns {arch: worst ratio}."""
+    width (or ``cfgs[arch]``), 2048-slot caches (bf16 in both serving
+    runs, as the path makes them; K5 on the card, its plain version on the
+    CPU), short prompts.  A serving run on each device: identical integer
+    counters (held) and the first step's logits (``_hold_logits``): held
+    on the zamba2 fp32 lane, printed on the tinyllama bf16 lane, whose
+    check is the teacher-forced norm check (``_teacher_forced``).  zamba2
+    runs in fp32 (weights drawn in bf16, then widened) because its bf16
+    arithmetic is chaotic: the same weights run in bf16 on the card land
+    far from the fp32 logits (printed), so two bf16 runs that round a few
+    values differently land ~0.1 apart.  ``hold=False`` only measures;
+    ``memo`` keeps a seed's CPU runs.  Returns {arch: readings}."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import init_params
+    from repro_torch.runtime import Request
     short = dict(lo=24, hi=48, max_new=8, seed=seed)
     out = {}
     for (arch, kw), n_layers, dtype in zip(
             WAVE_PATHS, (2, 6), (torch.bfloat16, torch.float32)):
-        cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        params_bf16 = init_params(cfg, gen, torch.bfloat16)
+        if archs is not None and arch not in archs:
+            continue
+        cfg = (cfgs or {}).get(arch) or dataclasses.replace(
+            get_arch(arch), n_layers=n_layers)
+        params_bf16 = _phase4_params(cfg, seed)
         params = _cast(params_bf16, dtype)   # fp32: the same weights
-        runs = {}
-        for dev in ("cuda", "cpu"):
+
+        def serve(dev, cfg=cfg, params=params, kw=kw):
             cluster, done, report, dt = _serve_waves(
-                cfg, params, dev, 2048, short, trace=True, **kw)
-            runs[dev] = (done, report, cluster.trace, dt)
-        (dg, rg, tg, sg), (dc, rc, tc, sc) = runs["cuda"], runs["cpu"]
-        ints = [k for k, v in rg.items() if isinstance(v, (int, np.integer))
-                and not isinstance(v, bool)]
-        bad = {k: (rg[k], rc[k]) for k in ints if rg[k] != rc[k]}
+                cfg, _cast(params, device=dev), dev, 2048, short, trace=True,
+                **kw)
+            return done, report, cluster.trace, dt
+
+        dg, rg, tg, sg = serve(card)
+        dc, rc, tc, sc = _memo(memo, ("wave serve", arch, seed),
+                               lambda serve=serve: serve("cpu"))
+        ints, bad = _counters(rg, rc)
         assert not hold or not bad, (
             f"{arch}: coherence counters differ card vs cpu: {bad}")
         first_c = next(e for e in tc if e["ev"] == "wave_step")
         held, every = _wave_logits(tg, tc)
-        err, ratio, flips = _hold_logits(f"{arch} waves", *held, hold=hold)
-        out[arch] = ratio
+        fp32 = dtype == torch.float32
+        err, ratio, flips, ties = _hold_logits(f"{arch} waves", *held,
+                                               hold=hold and fp32)
         same = sum(int(a == b) for x, y in zip(dg, dc)
                    for a, b in zip(x.output, y.output))
         total = sum(len(x.output) for x in dg)
-        log(f"wave card vs cpu ({smi}; seed {seed}; {arch} full width, "
-            f"{n_layers} layers, {str(dtype)[6:]} weights, 2048-slot "
-            f"caches): {len(ints) - len(bad)} of {len(ints)} integer "
+        label = (f"wave card vs cpu ({smi}; seed {seed}; {arch} full width, "
+                 f"{n_layers} layers, {str(dtype)[6:]} weights, 2048-slot "
+                 f"caches)")
+        log(f"{label}: {len(ints) - len(bad)} of {len(ints)} integer "
             f"counters identical; first-step logits max |err| {err:.4g} "
-            f"(tol 3e-2, worst {ratio:.3f} of it; {flips} first tokens "
-            f"differ at a tie); prefill logits max |err| {every:.4g} "
-            f"(printed); greedy tokens agree {same}/{total}; card "
-            f"{sg:.2f} s, cpu {sc:.2f} s")
-        if hold and dtype != torch.bfloat16:
-            # how far bf16 arithmetic alone moves this model: the same
-            # weights in bf16 on the card against the fp32 run on the CPU
-            trace = _serve_waves(cfg, params_bf16, "cuda", 2048, short,
-                                 trace=True, **kw)[0].trace
-            lb = next(e for e in trace if e["ev"] == "wave_step")["logits"]
-            log(f"  {arch} with the same weights in bf16 on the card: "
-                f"first-step logits max |err| "
-                f"{np.abs(lb - first_c['logits']).max():.4g} against the "
-                f"fp32 run on the cpu (max |logit| "
-                f"{np.abs(first_c['logits']).max():.4g})")
+            f"(worst {ratio:.3f} of 3e-2 + 3e-2 |v|; "
+            f"{'held' if fp32 else 'printed: the retired check'}; {flips} "
+            f"first tokens differ{' at a tie' if flips and ties else ''}); "
+            f"prefill logits max |err| {every:.4g} (printed); greedy tokens "
+            f"agree {same}/{total}; card {sg:.2f} s, cpu {sc:.2f} s")
+        res = dict(old_ratio=ratio, old_ok=not bad and ratio <= 1 and (
+            flips == 0 or (flips == 1 and ties)))
+        if fp32:
+            if hold:
+                # how far bf16 arithmetic alone moves this model: the same
+                # weights in bf16 on the card against the fp32 run on the
+                # CPU
+                trace = _serve_waves(cfg, _cast(params_bf16, device=card),
+                                     card, 2048, short, trace=True,
+                                     **kw)[0].trace
+                lb = next(e for e in trace
+                          if e["ev"] == "wave_step")["logits"]
+                log(f"  {arch} with the same weights in bf16 on the card: "
+                    f"first-step logits max |err| "
+                    f"{np.abs(lb - first_c['logits']).max():.4g} against "
+                    f"the fp32 run on the cpu (max |logit| "
+                    f"{np.abs(first_c['logits']).max():.4g})")
+        else:
+            reqs = _wave_requests(Request, np, cfg.vocab, **short)
+            res.update(_teacher_forced(label, "wave", cfg, params_bf16, reqs,
+                                       card, hold, memo, ("wave", seed)))
+        out[arch] = res
     return out
 
 
@@ -968,63 +1272,102 @@ def _cast(tree, dtype=None, device=None):
                       if v is not None})
 
 
-def phase4_card_vs_cpu(smi, seed=SEED, hold=True):
-    """The paged path on the card and on the CPU, full width at 2 layers
-    with bf16 weights: identical integer coherence counters, and the first
-    tick's logits within the bf16 tolerance.  ``hold=False`` only
-    measures.  Returns the first tick's worst |err| / (atol + rtol |v|)."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.models import init_params
-    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    params = init_params(cfg, gen, torch.bfloat16)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        cluster, done, report, dt = _serve(cfg, _cast(params, device=dev),
-                                           dev, 256, 128, trace=True,
-                                           seed=seed)
-        runs[dev] = (done, report, cluster.trace, dt)
-    (dg, rg, tg, sg), (dc, rc, tc, sc) = runs["cuda"], runs["cpu"]
-    ints = [k for k, v in rg.items()
-            if isinstance(v, (int, np.integer)) and not isinstance(v, bool)]
-    bad = {k: (rg[k], rc[k]) for k in ints if rg[k] != rc[k]}
-    assert not hold or not bad, f"coherence counters differ card vs cpu: {bad}"
-    first_g = next(e for e in tg if e["ev"] == "tick")
-    first_c = next(e for e in tc if e["ev"] == "tick")
-    if hold:
-        np.testing.assert_allclose(first_g["logits"], first_c["logits"],
-                                   **BF16)
-    d = np.abs(first_g["logits"] - first_c["logits"])
-    ratio = float((d / (BF16["atol"] + BF16["rtol"]
-                        * np.abs(first_c["logits"]))).max())
-    # each admission's prefill logits by request (printed)
-    ag = {e["rid"]: e["logits"] for e in tg if e["ev"] == "admit"}
-    ac = {e["rid"]: e["logits"] for e in tc if e["ev"] == "admit"}
-    every = max(float(np.abs(ag[r] - ac[r]).max()) for r in ag)
-    same = sum(int(a == b) for x, y in zip(dg, dc)
-               for a, b in zip(x.output, y.output))
-    total = sum(len(x.output) for x in dg)
-    log(f"card vs cpu ({smi}; seed {seed}; full width, 2 layers): "
-        f"{len(ints) - len(bad)} of {len(ints)} integer counters identical; "
-        f"first-tick logits max |err| {float(d.max()):.4g} (bf16 tol 3e-2, "
-        f"worst {ratio:.3f} of it); prefill logits max |err| {every:.4g} "
-        f"(printed); greedy tokens agree {same}/{total}; card {sg:.2f} s, "
-        f"cpu {sc:.2f} s")
-    return ratio
-
-
-def phase4_seed_sweep(smi, seeds):
-    """Phase 4's card-vs-CPU readings, measured and not held, for weights
-    and requests drawn from each seed (``--phase4-seeds``): how far the
-    bf16 comparisons sit from their tolerance."""
+def phase4_seed_sweep(smi, seeds, card="cuda"):
+    """Phase 4's readings, measured and not held, for weights and requests
+    drawn from each seed (``--phase4-seeds``): the retired max ratio and
+    the teacher-forced norm check of each bf16 lane, and the zamba2 fp32
+    lane's ratio; one JSON line per seed."""
     for seed in seeds:
-        paged = phase4_card_vs_cpu(smi, seed, hold=False)
-        waves = phase4_wave_card_vs_cpu(smi, seed, hold=False)
-        print(json.dumps({"seed": seed, "paged_ratio": paged,
-                          **{f"{k}_wave_ratio": v for k, v in waves.items()}}),
+        paged = phase4_card_vs_cpu(smi, seed, hold=False, card=card)
+        waves = phase4_wave_card_vs_cpu(smi, seed, hold=False, card=card)
+        print(json.dumps({"seed": seed, "paged": paged, **{
+            f"{k}_wave": v for k, v in waves.items()}}), flush=True)
+
+
+@contextlib.contextmanager
+def inject(name):
+    """One wrapper-level off-by-one of ``MUTANTS``, on every device, for
+    the ``with`` body: the ops module's reference to the kernel wrapper
+    is swapped for one that shifts one argument (no kernel source is
+    edited) -- K6 called with q_offset + 1, K4 with lengths - 1, K5 with
+    kv_len - 1, K8 with its weight rolled by one column."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as nops
+
+    def k6(fn):
+        return lambda q, k, v, **kw: fn(q, k, v, **{
+            **kw, "q_offset": kw.get("q_offset", 0) + 1})
+
+    def k4(fn):
+        return lambda *a, **kw: fn(*a[:5], a[5] - 1, *a[6:], **kw)
+
+    def k5(fn):
+        return lambda q, kc, vc, kv_len, **kw: fn(
+            q, kc, vc, torch.as_tensor(kv_len) - 1, **kw)
+
+    def k8(fn):
+        return lambda x, w, **kw: fn(x, torch.roll(w, 1), **kw)
+
+    mod, attr, wrap = {"K6 q_offset+1": (fops, "flash_prefill", k6),
+                       "K4 lengths-1": (dops, "paged_decode", k4),
+                       "K5 kv_len-1": (dops, "dense_decode", k5),
+                       "K8 weight rolled": (nops, "rmsnorm_2d", k8)}[name]
+    orig = getattr(mod, attr)
+    setattr(mod, attr, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def phase4_mutants(smi, seeds, card="cuda", cfgs=None):
+    """``--phase4-mutants``: each bf16 lane of each seed clean, then under
+    each of ``MUTANTS`` that its path calls, with both checks' readings
+    printed (one JSON line per run); the CPU runs are made once a seed,
+    outside any injection.  Returns the injections the retired check
+    fails on some seed and the new check on none (the new check must
+    catch every fault the old one caught)."""
+    cfgs = cfgs or {}
+
+    def lanes(seed, memo, which):
+        out = {}
+        if "paged" in which:
+            out["paged"] = phase4_card_vs_cpu(
+                smi, seed, hold=False, memo=memo, card=card,
+                cfg=cfgs.get("paged"))
+        if "wave" in which:
+            out["wave"] = phase4_wave_card_vs_cpu(
+                smi, seed, hold=False, memo=memo, card=card,
+                archs=("tinyllama-1.1b",),
+                cfgs={"tinyllama-1.1b": cfgs.get("wave")})["tinyllama-1.1b"]
+        return out
+
+    fails = {}
+    for seed in seeds:
+        memo = {}
+        print(json.dumps({"seed": seed, "mutant": None,
+                          **lanes(seed, memo, ("paged", "wave"))}),
               flush=True)
+        for name, which in MUTANTS.items():
+            with inject(name):
+                res = lanes(seed, memo, which)
+            print(json.dumps({"seed": seed, "mutant": name, **res}),
+                  flush=True)
+            for lane, r in res.items():
+                f = fails.setdefault((name, lane), ([], []))
+                if not r["old_ok"]:
+                    f[0].append(seed)
+                if not r["new_ok"]:
+                    f[1].append(seed)
+    missed = []
+    for (name, lane), (old, new) in fails.items():
+        log(f"mutant {name}, {lane} lane: the retired check fails seeds "
+            f"{old}, the new check seeds {new}")
+        if old and not new:
+            missed.append((name, lane))
+    return missed
 
 
 def main() -> int:
@@ -1042,6 +1385,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase4-seeds"]:
         phase4_seed_sweep(phase1_card_and_build(),
                           [int(x) for x in sys.argv[2].split(",")])
+        return 0
+    if sys.argv[1:2] == ["--phase4-mutants"]:
+        missed = phase4_mutants(phase1_card_and_build(),
+                                [int(x) for x in sys.argv[2].split(",")])
+        assert not missed, f"the new check misses injections that the " \
+            f"retired check caught: {missed}"
         return 0
     t0 = time.perf_counter()
 

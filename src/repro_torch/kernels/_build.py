@@ -100,7 +100,7 @@ SIGNATURES = {
     "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32,
                                                        _I32, _I32, _VP, _VP]),
     "tardis_dense_decode": ([_VP] * 4 + [_I32] * 6 + [_I64] * 3
-                            + [_F32, _I32, _I32] + [_VP] * 4),
+                            + [_F32, _I32, _I32, _I32, _VP]),
     "tardis_flash_prefill": ([_VP] * 4 + [_I32] * 5 + [_I64] * 6
                              + [_I32] * 3 + [_F32, _I32, _I32, _VP]),
     "tardis_ssd_chunk": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2

@@ -5,74 +5,83 @@
 // decode_attention_grouped (_decode_kernel).  Semantics kept: for each
 // (b, kv head h) the G query heads of that group attend over cache
 // positions t < kv_len with scores q.k_t * scale; the softmax runs in fp32
-// as (m, l, acc) with p = 0 wherever m <= NEG_INF; the output is
-// acc / max(l, 1e-30) in q's dtype.  kv_len is ONE int32 on the device,
-// read through a pointer (no host sync per layer; the call can be
-// captured in a CUDA graph), clamped into [0, T].
+// as (m, l, acc) with p = 0 wherever no position is live; the output is
+// acc / max(l, 1e-30) in q's dtype (0 at kv_len = 0).  kv_len is ONE int32
+// on the device, read through a pointer (no host sync per layer; the call
+// can be captured in a CUDA graph), clamped into [0, T].
 //
 // Layout: the cache is read where it lies -- one layer's (B, T, Hkv, Dh)
 // view of the stacked cache, with its batch / token / head strides in
 // elements and Dh contiguous -- instead of the TPU wrapper's transpose to
 // (B*Hkv, T, Dh), which would copy the whole cache on every call.  Dh is
 // not padded to 128 (that padding was for the TPU's lanes): any Dh <= 256
-// (64 for tinyllama, 80 for zamba2).
-//
-// Grid: (B*Hkv, ceil(T / split)).  A wave gives only B*Hkv = 16 (b, head)
-// pairs at tinyllama's shapes for 132 SMs, so each CTA takes `split`
-// consecutive positions of one pair and returns at once when they all lie
-// at or past kv_len.  It streams its positions in tiles: each thread loads
-// its share of the tile's K and V rows as 16-byte vectors into registers
-// (all loads in flight together), then stores them to shared memory as
-// fp32 -- lanes walk positions and rows sit dh + 1 floats apart, so both
-// the stores and the score loop's reads (32 positions at one d) hit 32
-// banks.  The next tile's loads are issued before the current tile is
-// computed, so they overlap the math.  The CTA's threads compute the
-// G x tile scores, one warp per query head runs the softmax update with
-// shuffles, and the P.V product accumulates in shared memory.  Each CTA
-// writes its unnormalised (m, l, acc) partial to fp32 scratch; a second
-// kernel, one CTA per pair, folds the partials of the splits below kv_len
-// and writes the output.  Dh and the strides must be multiples of one
-// vector (8 bf16 or 4 fp32 elements), the cache base 16-byte aligned.
+// (64 for tinyllama, 80 for zamba2) in whole 16-byte vectors.
 //
 // Bound on the H100: bytes.  Each live K/V element is read once and used
 // in 2 * G multiply-adds: at G <= 8 that is ~4 flop/B in bf16, far below
-// the ~295 flop/B where the tensor cores would bind, so tensor cores and
-// TMA are not used.
+// the ~295 flop/B where the tensor cores would bind; what costs is the
+// instructions and latency around each position.  The first design lost
+// to latency, not bytes: a (B*Hkv, T / 256) grid gave ~6 warps
+// an SM at tinyllama's shape, three CTA barriers a 64-position tile, K and
+// V widened to fp32 in shared memory with every score a 64-long chain of
+// shared loads, and a second combine launch.
+//
+// This design:
+// * Parallelism sized to the card.  Grid (B*Hkv*ceil(G/8), n_split) in
+//   clusters of (1, n_split): the CTAs of one (b, kv head) pair form one
+//   thread-block cluster.  The wrapper picks n_split (at most 8, the
+//   portable cluster size) from the pairs and T so that the grid fills
+//   the SMs (kernel.dense_split).  The positions [0, kv_len) are spread
+//   over the splits ON THE DEVICE: each CTA takes ceil(kv_len / n_split)
+//   of them, so every kv_len keeps every split busy and a graph replayed
+//   at another kv_len stays balanced.
+// * Warp-local work, no CTA barrier in the loop: each warp streams its
+//   own runs of positions through a warp-private cp.async ring in shared
+//   memory, K and V in their stored dtype, several stages in flight.
+// * The bf16 pair (Dh a multiple of 16 up to 128) runs on the tensor
+//   cores, 8 warps a CTA: mma.sync m16n8k16 with the G query heads of the
+//   KV head as the rows (padded to 16) and 16 positions a stage, K/V rows
+//   swizzled by 16-byte chunk so ldmatrix reads them without bank
+//   conflicts.  Q.K^T is exact (bf16 products, fp32 sums); P enters P.V
+//   exactly, as three bf16 parts whose sum is the fp32 P, so K5 keeps the
+//   fp32-P numbers of its plain version.  The fp32 pairs (and bf16 at any
+//   other Dh) run the SIMT variant: lanes split Dh into 16-byte vectors
+//   (a group of GS lanes per position), scores are register dot products
+//   reduced with shuffles, and each lane reads back only the vectors it
+//   copied itself, so cp.async.wait_group alone orders its ring.  Both
+//   keep fp32 (m, l, acc), 2^x with scale * log2(e) folded in once.
+// * One merge at the end, in the same launch (finish_cluster): across
+//   the warps through shared memory, then across the cluster's CTAs
+//   through distributed shared memory, behind one cluster barrier.  No
+//   global scratch, no atomics, no second kernel; a graph replay needs
+//   nothing reset.  (A first version combined through global partials
+//   and an atomic ticket taken by the last CTA: its tail of dependent L2
+//   round trips cost more.)
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxTile = 64;     // positions per tile, at most
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;       // 16-byte K (and V) vectors per thread
+constexpr int kWarps = 4;       // a CTA of the SIMT variant
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMmaWarps = 8;    // a CTA of the tensor-core variant
+constexpr int kStages = 4;       // cp.async ring depth, per lane
+constexpr int kUnroll = 2;       // position rows per lane per stage
+constexpr int kHeadChunk = 8;    // query heads per CTA, at most
+constexpr int kMaxSplit = 8;     // CTAs of a pair: the portable cluster
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int clamp_len(const int* kv_len_ptr, int t) {
-  return max(0, min(*kv_len_ptr, t));
 }
 
 // A 16-byte vector of K or V as fp32: 4 floats or 8 bf16 (the element at
@@ -99,220 +108,673 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// Positions per tile: one round of kUnroll vectors per thread covers it.
-template <typename T> int tile_for(int dh) {
-  const int t = kThreads * kUnroll * Vec<T>::n / dh;
-  return t < kMaxTile ? t : kMaxTile;
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// Issue the loads of K/V rows [t0, t0 + n_t) of the tile: vector idx
-// covers position idx % tile, elements (idx / tile) * VEC onward.
-template <typename T>
-__device__ __forceinline__ void load_tile(
-    uint4 (&kr)[kUnroll], uint4 (&vr)[kUnroll], const T* kb, const T* vb,
-    int t0, int n_t, int tile, int n_vec, long long st, int tid) {
-  constexpr int VEC = Vec<T>::n;
+// 2^x in one MUFU.EX2 (exp2f adds range checks around it)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The (m, l, acc) of this lane merged with the lane `o` apart (same Dh
+// slice, other positions).
+template <int NG, int NE>
+__device__ __forceinline__ void merge_lanes(float (&m)[NG], float (&l)[NG],
+                                            float (&acc)[NG][NE], int o) {
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int idx = tid + u * kThreads;
-    const int t = idx % tile, c = idx / tile;
-    if (idx < n_vec && t < n_t) {
-      const long long off = static_cast<long long>(t0 + t) * st + c * VEC;
-      kr[u] = *reinterpret_cast<const uint4*>(kb + off);
-      vr[u] = *reinterpret_cast<const uint4*>(vb + off);
-    } else {
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      vr[u] = make_uint4(0u, 0u, 0u, 0u);
+  for (int gi = 0; gi < NG; ++gi) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m[gi], o);
+    const float lo = __shfl_xor_sync(0xffffffffu, l[gi], o);
+    const float mn = fmaxf(m[gi], mo);
+    const float a = exp2f(m[gi] - mn), b = exp2f(mo - mn);
+    l[gi] = l[gi] * a + lo * b;
+    m[gi] = mn;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
+      acc[gi][e] = acc[gi][e] * a + ao * b;
     }
   }
 }
 
-// Store the loaded vectors to shared memory as fp32 rows of `row` floats.
-template <typename T>
-__device__ __forceinline__ void store_tile(
-    const uint4 (&kr)[kUnroll], const uint4 (&vr)[kUnroll], float* ks,
-    float* vs, int tile, int n_vec, int row, int tid) {
-  constexpr int VEC = Vec<T>::n;
+// Row stride (floats) of the warps' acc in the CTA merge: padded by 8 so
+// that the 8 head rows a warp stores at once fall in different banks.
+__host__ __device__ constexpr int acc_stride(int dh) { return dh + 8; }
+
+// Bytes of dynamic shared memory before the partials: the ring, or the
+// warps' (m, l, acc) of the CTA merge (which reuse it) where larger.
+__host__ __device__ __forceinline__ size_t part_offset(size_t ring, int w,
+                                                       int ng_max, int dh) {
+  const size_t merge = sizeof(float) * w * ng_max * (2 + acc_stride(dh));
+  return ((ring > merge ? ring : merge) + 15) / 16 * 16;
+}
+
+// The pair's output from its CTAs, which form one thread-block cluster.
+// Each CTA merges its warps' (m, l, acc) (wml [W][2][NG], wacc
+// [W][NG][acc_stride(dh)] in shared memory) into its partial and stores
+// it into its slot of EVERY CTA's `parts` ([n_split] slots of [2][NG]
+// then [NG][dh], in shared memory beside them) through distributed shared
+// memory; one cluster barrier (release / acquire) makes the stores
+// visible; then each CTA folds its share of the output columns from its
+// own shared memory and exits -- no remote loads, no second barrier.  No
+// global scratch, no atomics, no second launch.  (Pulling the partials
+// with remote loads between two barriers, or pushing them to rank 0 only
+// behind an mbarrier, measured slower on the card.)
+template <typename TQ, int NG, int W>
+__device__ __forceinline__ void finish_cluster(const float* wml,
+                                               const float* wacc,
+                                               float* parts, int ng, int dh,
+                                               TQ* __restrict__ ob) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ws = acc_stride(dh), slot = 2 * NG + NG * dh;
+  for (int x = tid; x < ng * dh; x += W * 32) {
+    const int gi = x / dh, d = x - gi * dh;
+    float mx = kNegInf;
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int idx = tid + u * kThreads;
-    if (idx < n_vec) {
-      const int t = idx % tile, c = idx / tile;
-      float kf[VEC], vf[VEC];
-      Vec<T>::unpack(kr[u], kf);
-      Vec<T>::unpack(vr[u], vf);
-      float* kd = ks + t * row + c * VEC;
-      float* vd = vs + t * row + c * VEC;
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, wml[w * 2 * NG + gi]);
+    float ls = 0.f, as = 0.f;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kd[e] = kf[e];
-        vd[e] = vf[e];
+    for (int w = 0; w < W; ++w) {
+      const float f = ex2(wml[w * 2 * NG + gi] - mx);
+      ls += wml[(w * 2 + 1) * NG + gi] * f;
+      as += wacc[(w * NG + gi) * ws + d] * f;
+    }
+    for (int r = 0; r < n_split; ++r) {
+      float* dst = cluster.map_shared_rank(parts, r) + rank * slot;
+      dst[2 * NG + x] = as;
+      if (d == 0) {
+        dst[gi] = mx;
+        dst[NG + gi] = ls;
       }
     }
   }
+  cluster.sync();
+  for (int x = rank * W * 32 + tid; x < ng * dh; x += n_split * W * 32) {
+    const int gi = x / dh;
+    float mr[kMaxSplit], lr[kMaxSplit], ar[kMaxSplit];
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      mr[r] = kNegInf;
+      lr[r] = ar[r] = 0.f;
+      if (r < n_split) {
+        mr[r] = parts[r * slot + gi];
+        lr[r] = parts[r * slot + NG + gi];
+        ar[r] = parts[r * slot + 2 * NG + x];
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) mx = fmaxf(mx, mr[r]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      const float f = ex2(mr[r] - mx);
+      ls += lr[r] * f;
+      as += ar[r] * f;
+    }
+    ob[x] = from_f32<TQ>(as / fmaxf(ls, 1e-30f));
+  }
 }
 
-template <typename TQ, typename T>
-__global__ void __launch_bounds__(kThreads) dense_decode_split(
+// NG: query heads held per lane (>= the CTA's heads); GS: lanes per
+// position (a power of 2 >= Dh / VEC, at most 32); NV: 16-byte vectors
+// per lane per row (Dh / VEC > 32 only for fp32 rows of Dh > 128).
+template <typename TQ, typename T, int NG, int GS, int NV>
+__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
     const TQ* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v,
-    const int* __restrict__ kv_len_ptr, int hkv, int g, int dh, int t_max,
-    int split, int tile, long long sb, long long st, long long sh,
-    float scale, float* __restrict__ part_acc, float* __restrict__ part_ml) {
-  const int kv_len = clamp_len(kv_len_ptr, t_max);
-  const int bh = blockIdx.x, sp = blockIdx.y;
-  const int lo = sp * split;
-  if (lo >= kv_len) return;               // nothing live in this split
-  const int hi = min(lo + split, kv_len);
-
-  extern __shared__ float smem[];
-  const int row = dh + 1;                 // padded: no bank conflicts
-  float* qs = smem;                       // g * dh
-  float* ks = qs + g * dh;                // tile * row
-  float* vs = ks + tile * row;            // tile * row
-  float* sc = vs + tile * row;            // g * tile
-  float* acc = sc + g * tile;             // g * dh
-  float* m_s = acc + g * dh;              // g
-  float* l_s = m_s + g;                   // g
-  float* alpha = l_s + g;                 // g
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = kThreads / 32;
+    const T* __restrict__ v, const int* __restrict__ kv_len_ptr, int hkv,
+    int g, int dh, int t_max, int n_hc, long long sb, long long st,
+    long long sh, float scale2, TQ* __restrict__ out) {
+  constexpr int VEC = Vec<T>::n;
+  constexpr int NE = NV * VEC;            // Dh elements per lane
+  constexpr int R = 32 / GS;              // positions per warp load
+  constexpr int ROWS = R * kUnroll;       // positions per warp stage
+  constexpr int SLOT = kUnroll * NV * 2;  // 16-byte vectors per lane-stage
+  constexpr int STAGE = kWarps * SLOT * 32;
+  extern __shared__ uint4 ring[];         // [kStages][kWarps][SLOT][32]
+  const int kv_len = max(0, min(*kv_len_ptr, t_max));
+  const int n_split = gridDim.y, sp = blockIdx.y, pid = blockIdx.x;
+  const int hc = pid % n_hc, bh = pid / n_hc;
   const int b = bh / hkv, h = bh - b * hkv;
+  const int g0 = hc * kHeadChunk, ng = min(g - g0, kHeadChunk);
+  TQ* ob = out + (static_cast<long long>(bh) * g + g0) * dh;
+  const int tid = threadIdx.x;
+  // the live positions, spread over the splits on the device (a split
+  // past kv_len takes none but still joins the cluster's merge)
+  const int per = (kv_len + n_split - 1) / n_split;
+  const int lo = min(sp * per, kv_len), hi = min(lo + per, kv_len);
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r = lane / GS, c = lane % GS;
+  const int n_chunks = dh / VEC;
   const T* kb = k + b * sb + h * sh;
   const T* vb = v + b * sb + h * sh;
-  const int n_vec = tile * (dh / Vec<T>::n);
-  uint4 kr[kUnroll], vr[kUnroll];
-  load_tile<T>(kr, vr, kb, vb, lo, min(tile, hi - lo), tile, n_vec, st, tid);
+  uint4* mine = ring + warp * SLOT * 32 + lane;
+  const int n_it = (hi - lo + kWarps * ROWS - 1) / (kWarps * ROWS);
 
-  const TQ* qb = q + static_cast<long long>(bh) * g * dh;
-  for (int x = tid; x < g * dh; x += kThreads) {
-    qs[x] = to_f32(qb[x]);
-    acc[x] = 0.f;
-  }
-  for (int x = tid; x < g; x += kThreads) {
-    m_s[x] = kNegInf;
-    l_s[x] = 0.f;
-  }
-
-  for (int t0 = lo; t0 < hi; t0 += tile) {
-    const int n_t = min(tile, hi - t0);
-    __syncthreads();   // the previous tile's readers are done
-    store_tile<T>(kr, vr, ks, vs, tile, n_vec, row, tid);
-    __syncthreads();
-    if (t0 + tile < hi)                   // the next tile's loads fly now
-      load_tile<T>(kr, vr, kb, vb, t0 + tile, min(tile, hi - t0 - tile),
-                   tile, n_vec, st, tid);
-    for (int x = tid; x < g * tile; x += kThreads) {
-      const int gi = x / tile, t = x - gi * tile;
-      float s = kNegInf;
-      if (t < n_t) {
-        const float* qr = qs + gi * dh;
-        const float* kr_s = ks + t * row;
-        s = 0.f;
-        for (int d = 0; d < dh; ++d) s += qr[d] * kr_s[d];
-        s *= scale;
-      }
-      sc[x] = s;
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += n_warps) {   // one warp per head
-      float* sr = sc + gi * tile;
-      float mx = kNegInf;
-      for (int t = lane; t < tile; t += 32) mx = fmaxf(mx, sr[t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < tile; t += 32) {
-        const float p = (m_new <= kNegInf || t >= n_t)
-                            ? 0.f : expf(sr[t] - m_new);
-        sr[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        l_s[gi] = l_s[gi] * a + sum;
-        m_s[gi] = m_new;
-        alpha[gi] = a;
+  auto issue = [&](int it) {              // this warp's stage `it`
+    if (it < n_it) {
+      const int base = lo + (it * kWarps + warp) * ROWS;
+      uint4* dst = mine + (it % kStages) * STAGE;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = base + u * R + r;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int ch = c + j * GS;
+          const bool ok = t < hi && ch < n_chunks;
+          const long long off = ok ? t * st + ch * VEC : 0;
+          cp_async16(dst + ((u * NV + j) * 2) * 32, kb + off, ok);
+          cp_async16(dst + ((u * NV + j) * 2 + 1) * 32, vb + off, ok);
+        }
       }
     }
-    __syncthreads();
-    for (int x = tid; x < g * dh; x += kThreads) {
-      const int gi = x / dh, d = x - gi * dh;
-      const float* pr = sc + gi * tile;
-      float a = acc[x] * alpha[gi];
-      for (int t = 0; t < n_t; ++t) a += pr[t] * vs[t * row + d];
-      acc[x] = a;
+    cp_async_commit();                    // an empty group past the end
+  };
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) issue(s);
+
+  // q's slice for this lane, pre-scaled by scale * log2(e)
+  float qr[NG][NE];
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int ch = c + j * GS;
+      const bool ok = gi < ng && ch < n_chunks;
+      const TQ* qp = q + (static_cast<long long>(bh) * g + g0 + gi) * dh +
+                     ch * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qr[gi][j * VEC + e] = ok ? to_f32(qp[e]) * scale2 : 0.f;
+    }
+
+  float m[NG], l[NG], acc[NG][NE];
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi) {
+    m[gi] = kNegInf;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[gi][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 1>();         // stage `it` has landed
+    const uint4* src = mine + (it % kStages) * STAGE;
+    float kf[kUnroll][NE], vf[kUnroll][NE];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        Vec<T>::unpack(src[((u * NV + j) * 2) * 32], &kf[u][j * VEC]);
+        Vec<T>::unpack(src[((u * NV + j) * 2 + 1) * 32], &vf[u][j * VEC]);
+      }
+    const int base = lo + (it * kWarps + warp) * ROWS;
+    float s[kUnroll][NG];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) x = fmaf(qr[gi][e], kf[u][e], x);
+#pragma unroll
+        for (int o = GS / 2; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        s[u][gi] = x;
+      }
+    bool live[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) live[u] = base + u * R + r < hi;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (live[u]) mx = fmaxf(mx, s[u][gi]);
+      const float alpha = exp2f(m[gi] - mx);
+      float p[kUnroll], sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        p[u] = live[u] ? exp2f(s[u][gi] - mx) : 0.f;
+        sum += p[u];
+      }
+      l[gi] = l[gi] * alpha + sum;
+      m[gi] = mx;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        float a = acc[gi][e] * alpha;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vf[u][e], a);
+        acc[gi][e] = a;
+      }
+    }
+    issue(it + kStages);                  // into the slot just read
+  }
+  cp_async_wait<0>();
+
+  // merge the warp's row groups (lanes GS, 2 GS, ... apart)
+#pragma unroll
+  for (int o = GS; o < 32; o <<= 1) merge_lanes<NG, NE>(m, l, acc, o);
+
+  // merge the CTA's warps through shared memory (the ring is done)
+  __syncthreads();
+  float* wml = reinterpret_cast<float*>(ring);    // [kWarps][2][NG]
+  float* wacc = wml + kWarps * 2 * NG;  // [kWarps][NG][acc_stride(dh)]
+  if (r == 0) {
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      if (c == 0) {
+        wml[(warp * 2) * NG + gi] = m[gi];
+        wml[(warp * 2 + 1) * NG + gi] = l[gi];
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int ch = c + j * GS;
+        if (ch < n_chunks)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            wacc[(warp * NG + gi) * acc_stride(dh) + ch * VEC + e] =
+                acc[gi][j * VEC + e];
+      }
     }
   }
   __syncthreads();
-  const long long part = static_cast<long long>(bh) * gridDim.y + sp;
-  float* pa = part_acc + part * g * dh;
-  for (int x = tid; x < g * dh; x += kThreads) pa[x] = acc[x];
-  float* pm = part_ml + part * 2 * g;
-  for (int x = tid; x < g; x += kThreads) {
-    pm[x] = m_s[x];
-    pm[g + x] = l_s[x];
-  }
+  finish_cluster<TQ, NG, kWarps>(
+      wml, wacc,
+      reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ring) +
+                               part_offset(sizeof(uint4) * kStages * STAGE,
+                                           kWarps, NG, dh)),
+      ng, dh, ob);
 }
 
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads) dense_decode_combine(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ kv_len_ptr, int g, int dh, int t_max, int split,
-    int n_split, TQ* __restrict__ out) {
-  const int kv_len = clamp_len(kv_len_ptr, t_max);
-  const int n_live = min(n_split, (kv_len + split - 1) / split);
-  const int bh = blockIdx.x;
-  const float* pa = part_acc + static_cast<long long>(bh) * n_split * g * dh;
-  const float* pm = part_ml + static_cast<long long>(bh) * n_split * 2 * g;
-  TQ* ob = out + static_cast<long long>(bh) * g * dh;
-  for (int x = threadIdx.x; x < g * dh; x += kThreads) {
-    const int gi = x / dh;
-    float m = kNegInf;
-    for (int s = 0; s < n_live; ++s) m = fmaxf(m, pm[s * 2 * g + gi]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_live; ++s) {
-      const float w = expf(pm[s * 2 * g + gi] - m);
-      l += pm[s * 2 * g + g + gi] * w;
-      a += pa[static_cast<long long>(s) * g * dh + x] * w;
+// max / sum over the 4 lanes that share a fragment row (lane bits 0-1)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- the tensor-core variant for the bf16 pair -----------------------------
+
+constexpr int kMmaPos = 16;      // positions per warp stage
+
+__device__ __forceinline__ unsigned pack_pair(const __nv_bfloat16* p) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(p[0])) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(p[1])) << 16);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
+                                         unsigned a2, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+// four 8 x 8 bf16 matrices from shared memory: thread t gives the row
+// address of matrix t / 8 and receives, of matrix i in r[i], the elements
+// (t / 4, 2 (t % 4)) and (t / 4, 2 (t % 4) + 1) -- transposed with .trans
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+// the 16-byte chunk c of row r in a swizzled row of `pitch` bytes
+__device__ __forceinline__ int swz(int r, int c, int pitch) {
+  return r * pitch + (((c & ~7) | ((c ^ r) & 7)) << 4);
+}
+
+// A warp's ring: as many stages as fit in 12 KB (3 at Dh <= 64, so that
+// two 8-warp CTAs fit an SM and a cluster of 8 lands on 4 SMs), at least 2
+template <int DH> struct MmaTile {
+  static constexpr int kPitch = (DH + 63) / 64 * 128;  // bytes a row
+  static constexpr int kTile = kMmaPos * kPitch;        // one K or V tile
+  static constexpr int kStages =
+      12288 / (2 * kTile) > 2 ? 12288 / (2 * kTile) : 2;
+  static constexpr int kBytes = kMmaWarps * kStages * 2 * kTile;
+};
+
+// The bf16 pair with Dh a multiple of 16: each warp stages 16
+// positions of K and V at a time (cp.async into rows swizzled by 16-byte
+// chunk, a warp-private ring), Q.K^T and P.V on mma.sync m16n8k16 with the
+// G query heads as the rows (padded to 16).  P enters P.V exactly, as the
+// three bf16 parts whose sum is the fp32 P (8 + 8 + 8 significant bits):
+// the products are those of the fp32 P, accumulated in fp32.
+template <int DH>
+__global__ void __launch_bounds__(kMmaWarps * 32) dense_decode_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len_ptr,
+    int hkv, int g, int t_max, int n_hc, long long sb, long long st,
+    long long sh, float scale2, __nv_bfloat16* __restrict__ out) {
+  using Tile = MmaTile<DH>;
+  constexpr int KS = DH / 16, ND = DH / 8, CH = DH / 8;
+  constexpr int NST = Tile::kStages, PITCH = Tile::kPitch;
+  extern __shared__ uint4 ring[];         // [kMmaWarps][NST][K, V tiles]
+  const int n_split = gridDim.y, sp = blockIdx.y, pid = blockIdx.x;
+  const int hc = pid % n_hc, bh = pid / n_hc;
+  const int b = bh / hkv, h = bh - b * hkv;
+  const int g0 = hc * kHeadChunk, ng = min(g - g0, kHeadChunk);
+  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
+  // q as A fragments (row grp is head g0 + grp, rows 8-15 are zero),
+  // loaded before kv_len so that the two loads overlap
+  unsigned qa[KS][2];
+  const __nv_bfloat16* qrow =
+      q + (static_cast<long long>(bh) * g + g0 + min(grp, ng - 1)) * DH;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    qa[ks][0] = grp < ng ? pack_pair(qrow + ks * 16 + 2 * tig) : 0u;
+    qa[ks][1] = grp < ng ? pack_pair(qrow + ks * 16 + 8 + 2 * tig) : 0u;
+  }
+  const int kv_len = max(0, min(*kv_len_ptr, t_max));
+  __nv_bfloat16* ob = out + (static_cast<long long>(bh) * g + g0) * DH;
+  const int tid = threadIdx.x;
+  const int per = (kv_len + n_split - 1) / n_split;
+  const int lo = min(sp * per, kv_len), hi = min(lo + per, kv_len);
+
+  const int warp = tid >> 5;
+  const __nv_bfloat16* kb = k + b * sb + h * sh;
+  const __nv_bfloat16* vb = v + b * sb + h * sh;
+  unsigned char* wring =
+      reinterpret_cast<unsigned char*>(ring) + warp * NST * 2 * Tile::kTile;
+  const int n_it =
+      (hi - lo + kMmaWarps * kMmaPos - 1) / (kMmaWarps * kMmaPos);
+
+  auto issue = [&](int it) {              // this warp's stage `it`
+    if (it < n_it) {
+      const int base = lo + (it * kMmaWarps + warp) * kMmaPos;
+      unsigned char* dst = wring + (it % NST) * 2 * Tile::kTile;
+#pragma unroll
+      for (int x = lane; x < kMmaPos * CH; x += 32) {
+        const int r = x / CH, c = x - r * CH;
+        const bool ok = base + r < hi;
+        const long long off = ok ? (base + r) * st + c * 8 : 0;
+        cp_async16(dst + swz(r, c, PITCH), kb + off, ok);
+        cp_async16(dst + Tile::kTile + swz(r, c, PITCH), vb + off, ok);
+      }
     }
-    ob[x] = from_f32<TQ>(a / fmaxf(l, 1e-30f));
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < NST; ++s) issue(s);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<NST - 1>();
+    __syncwarp();                         // every lane's copies landed
+    const unsigned char* kt = wring + (it % NST) * 2 * Tile::kTile;
+    const unsigned char* vt = kt + Tile::kTile;
+    const int mi = lane >> 3;
+    // S = Q.K^T: 16 head rows x 16 positions (two n-blocks)
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned bf[4];
+      const int r = (mi >> 1) * 8 + (lane & 7);
+      ldmatrix_x4(bf, kt + swz(r, ks * 2 + (mi & 1), PITCH));
+      mma_bf16(sc[0], qa[ks][0], qa[ks][1], bf[0], bf[1]);
+      mma_bf16(sc[1], qa[ks][0], qa[ks][1], bf[2], bf[3]);
+    }
+    // the online softmax of head grp (its row: sc[nb][0..1]) in base 2
+    const int base = lo + (it * kMmaWarps + warp) * kMmaPos;
+    float x[2][2], mx = m;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = base + nb * 8 + 2 * tig + e < hi;
+        x[nb][e] = live ? sc[nb][e] * scale2 : kNegInf;
+        mx = fmaxf(mx, x[nb][e]);
+      }
+    mx = quad_max(mx);
+    float p[2][2], sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[nb][e] = x[nb][e] <= kNegInf ? 0.f : ex2(x[nb][e] - mx);
+        sum += p[nb][e];
+      }
+    const float alpha = ex2(m - mx);
+    l = l * alpha + quad_sum(sum);
+    m = mx;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      acc[nd][0] *= alpha;
+      acc[nd][1] *= alpha;
+    }
+    // P as three exact bf16 parts (A fragments a0 = positions 0-7, a2 =
+    // positions 8-15 of row grp)
+    unsigned pa[3][2];
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        pa[part][nb] = pack_bf16(p[nb][0], p[nb][1]);
+        const __nv_bfloat162 r2 =
+            *reinterpret_cast<const __nv_bfloat162*>(&pa[part][nb]);
+        p[nb][0] -= __low2float(r2);
+        p[nb][1] -= __high2float(r2);
+      }
+    // O += P.V: V's [position][d] rows as B fragments through ldmatrix.trans
+#pragma unroll
+    for (int nd = 0; nd < ND; nd += 2) {
+      unsigned vf[4];
+      ldmatrix_x4_trans(vf, vt + swz((mi & 1) * 8 + (lane & 7),
+                                     nd + (mi >> 1), PITCH));
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        mma_bf16(acc[nd], pa[part][0], pa[part][1], vf[0], vf[1]);
+        mma_bf16(acc[nd + 1], pa[part][0], pa[part][1], vf[2], vf[3]);
+      }
+    }
+    __syncwarp();                         // the slot is read: refill it
+    issue(it + NST);
   }
+  cp_async_wait<0>();
+
+  __syncthreads();
+  float* wml = reinterpret_cast<float*>(ring);     // [kMmaWarps][2][8]
+  float* wacc = wml + kMmaWarps * 2 * kHeadChunk;  // [8 warps][8][stride]
+  if (tig == 0) {
+    wml[(warp * 2) * kHeadChunk + grp] = m;
+    wml[(warp * 2 + 1) * kHeadChunk + grp] = l;
+  }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    *reinterpret_cast<float2*>(
+        wacc + (warp * kHeadChunk + grp) * acc_stride(DH) + nd * 8 + 2 * tig) =
+        make_float2(acc[nd][0], acc[nd][1]);
+  }
+  __syncthreads();
+  finish_cluster<__nv_bfloat16, kHeadChunk, kMmaWarps>(
+      wml, wacc,
+      reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ring) +
+                               part_offset(Tile::kBytes, kMmaWarps,
+                                           kHeadChunk, DH)),
+      ng, DH, ob);
 }
 
-template <typename TQ, typename T>
-int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int b, int hkv, int g, int dh, int t_max, int split, long long sb,
-           long long st, long long sh, float scale, void* part_acc,
-           void* part_ml, void* out, cudaStream_t stream) {
-  constexpr int VEC = Vec<T>::n;
-  if (dh % VEC || sb % VEC || st % VEC || sh % VEC ||
-      reinterpret_cast<uintptr_t>(k) % 16 ||
-      reinterpret_cast<uintptr_t>(v) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  const int tile = tile_for<T>(dh);
-  const size_t smem = sizeof(float) * (2 * g * dh + 2 * tile * (dh + 1) +
-                                       g * tile + 3 * g);
-  auto kern = dense_decode_split<TQ, T>;
+// Launch `kern` over (pairs, n_split) CTAs in clusters of (1, n_split):
+// one cluster per (b, kv head, head chunk) pair.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), int pairs, int n_split,
+                   int warps, size_t smem, cudaStream_t stream,
+                   Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int n_split = (t_max + split - 1) / split;
-  kern<<<dim3(b * hkv, n_split), kThreads, smem, stream>>>(
-      (const TQ*)q, (const T*)k, (const T*)v, (const int*)kv_len, hkv, g, dh,
-      t_max, split, tile, sb, st, sh, scale, (float*)part_acc,
-      (float*)part_ml);
-  cudaError_t e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pairs, n_split, 1);
+  cfg.blockDim = dim3(32 * warps, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
-  dense_decode_combine<TQ><<<b * hkv, kThreads, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml, (const int*)kv_len, g,
-      dh, t_max, split, n_split, (TQ*)out);
   return (int)cudaGetLastError();
+}
+
+// dynamic shared memory: the ring (or the merge) and n_split partials
+size_t smem_bytes(size_t ring, int warps, int ng_max, int dh, int n_split) {
+  return part_offset(ring, warps, ng_max, dh) +
+         sizeof(float) * ng_max * (2 + dh) * n_split;
+}
+
+template <typename TQ, typename T, int NG, int GS, int NV>
+int launch_k(const void* q, const void* k, const void* v, const void* kv_len,
+             int b, int hkv, int g, int dh, int t_max, int n_split,
+             long long sb, long long st, long long sh, float scale, void* out,
+             cudaStream_t stream) {
+  constexpr int SLOT = kUnroll * NV * 2;
+  const size_t ring = sizeof(uint4) * kStages * kWarps * SLOT * 32;
+  const int n_hc = (g + kHeadChunk - 1) / kHeadChunk;
+  return launch_cluster(dense_decode_kernel<TQ, T, NG, GS, NV>,
+                        b * hkv * n_hc, n_split, kWarps,
+                        smem_bytes(ring, kWarps, NG, dh, n_split), stream,
+                        (const TQ*)q, (const T*)k, (const T*)v,
+                        (const int*)kv_len, hkv, g, dh, t_max, n_hc, sb, st,
+                        sh, scale * kLog2e, (TQ*)out);
+}
+
+template <typename TQ, typename T, int NG>
+int launch_gs(const void* q, const void* k, const void* v, const void* kv_len,
+              int b, int hkv, int g, int dh, int t_max, int n_split,
+              long long sb, long long st, long long sh, float scale,
+              void* out, cudaStream_t s) {
+  const int n_chunks = dh / Vec<T>::n;
+#define TARDIS_K5(GS, NV)                                                   \
+  return launch_k<TQ, T, NG, GS, NV>(q, k, v, kv_len, b, hkv, g, dh, t_max, \
+                                     n_split, sb, st, sh, scale, out, s)
+  if (n_chunks <= 4) TARDIS_K5(4, 1);
+  if (n_chunks <= 8) TARDIS_K5(8, 1);
+  if (n_chunks <= 16) TARDIS_K5(16, 1);
+  if (n_chunks <= 32) TARDIS_K5(32, 1);
+  if constexpr (Vec<T>::n == 4) {         // fp32 rows of Dh > 128
+    if (n_chunks <= 64) TARDIS_K5(32, 2);
+  }
+#undef TARDIS_K5
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v,
+               const void* kv_len, int b, int hkv, int g, int t_max,
+               int n_split, long long sb, long long st, long long sh,
+               float scale, void* out, cudaStream_t stream) {
+  const int n_hc = (g + kHeadChunk - 1) / kHeadChunk;
+  return launch_cluster(dense_decode_mma<DH>, b * hkv * n_hc, n_split,
+                        kMmaWarps,
+                        smem_bytes(MmaTile<DH>::kBytes, kMmaWarps, kHeadChunk,
+                                   DH, n_split),
+                        stream,
+                        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                        (const __nv_bfloat16*)v, (const int*)kv_len, hkv, g,
+                        t_max, n_hc, sb, st, sh, scale * kLog2e,
+                        (__nv_bfloat16*)out);
+}
+
+// The bf16 pair at Dh a multiple of 16 on the tensor cores;
+// -1 for a Dh it has no instance of.
+int try_mma(const void* q, const void* k, const void* v, const void* kv_len,
+            int b, int hkv, int g, int dh, int t_max, int n_split,
+            long long sb, long long st, long long sh, float scale, void* out,
+            cudaStream_t s) {
+#define TARDIS_K5_MMA(D)                                                   \
+  case D:                                                                  \
+    return launch_mma<D>(q, k, v, kv_len, b, hkv, g, t_max, n_split, sb,   \
+                         st, sh, scale, out, s);
+  switch (dh) {
+    TARDIS_K5_MMA(16) TARDIS_K5_MMA(32) TARDIS_K5_MMA(48) TARDIS_K5_MMA(64)
+    TARDIS_K5_MMA(80) TARDIS_K5_MMA(96) TARDIS_K5_MMA(112)
+    TARDIS_K5_MMA(128)
+  }
+#undef TARDIS_K5_MMA
+  return -1;
+}
+
+template <typename TQ, typename T>
+int launch(const void* q, const void* k, const void* v, const void* kv_len,
+           int b, int hkv, int g, int dh, int t_max, int n_split,
+           long long sb, long long st, long long sh, float scale,
+           int tensor_cores, void* out, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::n;
+  if (dh % VEC || sb % VEC || st % VEC || sh % VEC ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (tensor_cores) {
+    if constexpr (sizeof(TQ) == 2 && sizeof(T) == 2) {
+      const int r = try_mma(q, k, v, kv_len, b, hkv, g, dh, t_max, n_split,
+                            sb, st, sh, scale, out, s);
+      if (r >= 0) return r;
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (g == 1)
+    return launch_gs<TQ, T, 1>(q, k, v, kv_len, b, hkv, g, dh, t_max,
+                               n_split, sb, st, sh, scale, out, s);
+  return launch_gs<TQ, T, kHeadChunk>(q, k, v, kv_len, b, hkv, g, dh, t_max,
+                                      n_split, sb, st, sh, scale, out, s);
 }
 
 }  // namespace
@@ -321,30 +783,34 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 // k and v share kv_dtype: both float32, both bfloat16, or a float32 q
 // over bfloat16 caches (the wave path with fp32 weights keeps bf16
 // caches, as the JAX package does; the TPU kernel cast both to fp32).
-// part_acc: B*Hkv*n_split*G*Dh floats; part_ml: B*Hkv*n_split*2*G floats,
-// n_split = ceil(t_max / split).  Dh and the cache strides are multiples
-// of 16 bytes' worth of elements, the caches 16-byte aligned.
+// tensor_cores picks the mma.sync variant (the bf16 pair at Dh a multiple
+// of 16 up to 128; the caller decides, as it also sizes n_split for it),
+// else the SIMT variant.  n_split (1 to 8) is the cluster size: the CTAs
+// of one (b, kv head, 8-head chunk) pair.  Dh and the cache strides are
+// multiples of 16 bytes' worth of elements, the caches 16-byte aligned.
 extern "C" int tardis_dense_decode(const void* q, const void* k,
                                    const void* v, const void* kv_len, int b,
                                    int hkv, int g, int dh, int t_max,
-                                   int split, long long sb, long long st,
+                                   int n_split, long long sb, long long st,
                                    long long sh, float scale, int q_dtype,
-                                   int kv_dtype, void* part_acc,
-                                   void* part_ml, void* out, void* stream) {
+                                   int kv_dtype, int tensor_cores, void* out,
+                                   void* stream) {
   if (b == 0 || hkv == 0 || g == 0) return (int)cudaGetLastError();
-  if (t_max <= 0 || split <= 0 || dh <= 0 || dh > 256)
+  if (t_max <= 0 || n_split <= 0 || n_split > kMaxSplit || dh <= 0 ||
+      dh > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k, v, kv_len, b, hkv, g, dh, t_max, split,
-                                sb, st, sh, scale, part_acc, part_ml, out, s);
+    return launch<float, float>(q, k, v, kv_len, b, hkv, g, dh, t_max,
+                                n_split, sb, st, sh, scale, tensor_cores, out,
+                                s);
   if (q_dtype == 0 && kv_dtype == 1)
     return launch<float, __nv_bfloat16>(q, k, v, kv_len, b, hkv, g, dh,
-                                        t_max, split, sb, st, sh, scale,
-                                        part_acc, part_ml, out, s);
+                                        t_max, n_split, sb, st, sh, scale,
+                                        tensor_cores, out, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, kv_len, b, hkv, g, dh, t_max, split, sb, st, sh, scale,
-        part_acc, part_ml, out, s);
+        q, k, v, kv_len, b, hkv, g, dh, t_max, n_split, sb, st, sh, scale,
+        tensor_cores, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,17 @@ from .._build import launch, ptr
 from .ref import dense_decode_attention_ref, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# K5: cache positions per CTA; the (q, cache) dtype pairs it takes
-DENSE_SPLIT = 256
+# K5: query heads per CTA at most; CTAs per SM the split aims at: the
+# SIMT variant's 4 warps take 4 an SM at G = 1, 2 otherwise (registers);
+# the tensor-core variant's 8 warps take ~3/4 of the SMs -- on the H100
+# 16 pairs x 6 splits ran faster than x 8 or x 4 (clusters of a pair's
+# CTAs are placed within one GPC); splits at most (a pair's CTAs are one
+# cluster); positions one CTA's warps take in one round at least; the
+# (q, cache) dtype pairs it takes
+HEAD_CHUNK = 8
+CTAS_PER_SM = {"mma": 0.75, 1: 4, "else": 2}
+MAX_SPLIT = 8
+MIN_SPLIT_POSITIONS = 32
 _DENSE_PAIRS = ((torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16))
@@ -113,19 +122,49 @@ def dense_decode(q, k_cache, v_cache, kv_len, *, scale: float = None):
         raise ValueError(f"dense_decode needs a contiguous q, dh <= 256, and "
                          f"dh and the cache strides in multiples of {vec} "
                          f"elements from 16-byte aligned caches")
-    n_split = -(-t_max // DENSE_SPLIT)
-    part_acc = torch.empty((b * hkv, n_split, g, dh), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b * hkv, n_split, 2, g), dtype=torch.float32,
-                          device=dev)
+    pairs = b * hkv * -(-g // HEAD_CHUNK)
+    variant = _variant(q.dtype, k_cache.dtype, g, dh)
+    n_split = dense_split(pairs, variant, t_max, _sm_count(dev))
     out = torch.empty_like(q)
     sb, st, sh, _ = k_cache.stride()
     launch("tardis_dense_decode", ptr(q), ptr(k_cache), ptr(v_cache),
-           ptr(kv_len), b, hkv, g, dh, t_max, DENSE_SPLIT, sb, st, sh,
+           ptr(kv_len), b, hkv, g, dh, t_max, n_split, sb, st, sh,
            float(scale), _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
-           ptr(part_acc), ptr(part_ml), ptr(out))
+           int(variant == "mma"), ptr(out))
     dense_decode.launches += 1
     return out
 
 
 dense_decode.launches = 0
+
+
+def _variant(q_dtype, kv_dtype, g: int, dh: int):
+    """Which of K5's kernels takes the call (the kernel follows this
+    choice), as ``CTAS_PER_SM`` keys it: "mma" for the bf16 pair at a Dh
+    the tensor-core variant has an instance of (multiples of 16 up to
+    128), else the SIMT variant's G."""
+    if q_dtype == kv_dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128:
+        return "mma"
+    return g
+
+
+def dense_split(pairs: int, variant, t_max: int, n_sm: int) -> int:
+    """K5's splits per (b, kv head, head chunk) pair, the CTAs of one
+    thread-block cluster: as many as one wave of the variant's
+    ``CTAS_PER_SM`` an SM holds (no second wave), at most ``MAX_SPLIT``
+    (the portable cluster size) and no more than a T-slot cache has
+    rounds of ``MIN_SPLIT_POSITIONS`` positions.  The kernel spreads the
+    live positions (< kv_len, on the device) over them."""
+    per_sm = CTAS_PER_SM.get(variant, CTAS_PER_SM["else"])
+    want = min(int(per_sm * n_sm) // pairs, MAX_SPLIT)
+    return max(1, min(want, -(-t_max // MIN_SPLIT_POSITIONS)))
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]

@@ -15,11 +15,12 @@
 // place.  No transpose, no pad of Dh to 128 (the TPU wrapper's pad would
 // read 60 % more at Dh = 80); any Dh <= 256.
 //
-// Grid: (ceil(Sq * G / 64), Hkv, B).  A CTA owns 64 (query, head) rows of
-// ONE KV head: the flat row f = qi * G + g walks the G query heads of that
-// KV head for consecutive queries (8 queries x 8 heads at tinyllama's
-// G = 8, 64 queries at zamba2's G = 1), so every K/V tile it stages is
-// used by all G heads.  It walks 64-position KV tiles only up to
+// The SIMT kernel (fp32 q): grid (ceil(Sq * G / 64), Hkv, B).  A CTA owns
+// 64 (query, head) rows of ONE KV head: the flat row f = qi * G + g walks
+// the G query heads of that KV head for consecutive queries (8 queries x
+// 8 heads at tinyllama's G = 8, 64 queries at zamba2's G = 1), so every
+// K/V tile it stages is used by all G heads (so do the wgmma variant's
+// 128-row CTAs).  It walks 64-position KV tiles only up to
 // min(kv_len, q_offset + its last query + 1): tiles past the causal
 // diagonal or past kv_len are never loaded, and the ragged Sq / Skv edges
 // are masked in the kernel (the TPU kernel asserted that the lengths
@@ -30,30 +31,59 @@
 // shared memory and each thread accumulates its 4 rows x ceil(Dh / 16)
 // output columns in registers.
 //
-// The bf16 pair (Dh a multiple of 16 up to 128, K/V rows in 16-byte
-// vectors) runs on the tensor cores instead: flash_prefill_mma, 4 warps
-// of 16 rows each, mma.sync m16n8k16 bf16 -> fp32 for Q.K^T (exact: bf16
-// products accumulate in fp32) and for P.V.  P is rounded to bf16 for
-// P.V, as FlashAttention does, while l sums the fp32 P: each weight is off
-// by at most 2^-9 of itself, so the output is off the plain version's by
-// at most 2^-9 max|v| before its own rounding to bf16.  The softmax is the
-// plain version's: expf(s * scale - m).  Q stays in registers as A
-// fragments; K/V tiles are copied with cp.async into two shared-memory
-// buffers (the next tile lands while this one is computed) as [key][d]
-// rows padded by 16 bytes, so K's fragment loads and V's ldmatrix.trans
-// hit 32 banks.  CTAs are issued longest-first (the last query rows walk
-// the most tiles).
+// The bf16 pair (Dh a multiple of 16 up to 128, K/V views in whole
+// 16-byte rows) runs flash_prefill_wgmma on the tensor cores instead.
+// P is rounded to bf16 for P.V, as FlashAttention does, while l sums the
+// fp32 P: each weight is off by at most 2^-9 of itself, so the output is
+// off the plain version's by at most 2^-9 max|v| before its own rounding
+// to bf16.  Q.K^T is exact (bf16 products accumulate in fp32).
 //
 // Bound on the H100: operations.  At S = 3072 a (b, kv head) pair does
 // ~S^2 * Dh * G * 2 multiply-adds over ~S * Dh * 4 bytes of K/V: hundreds
 // of flop per byte.  The fp32 pair runs its products as fp32 SIMT FMAs
 // (67 TFLOP/s peak; no TF32, the fp32 tolerance is 2e-4), and so does a
-// float32 q over bfloat16 K/V.  mma.sync reaches only part of the bf16
-// tensor-core peak that wgmma would (989 TFLOP/s); wgmma and TMA are for
-// a later version.
+// float32 q over bfloat16 K/V.  The first bf16 design reached 13 % of the
+// bf16 tensor-core peak (989 TFLOP/s): mma.sync on 64-row CTAs, a
+// two-buffer cp.async ring with two CTA barriers a tile, the causal /
+// kv_len mask evaluated on every element of every tile, expf with the
+// scale applied per element.
+//
+// The Hopper design (flash_prefill_wgmma): 384 threads, 128 (query, head)
+// rows a CTA.
+// * Warpgroup 0 is the producer: setmaxnreg gives its registers to the
+//   consumers and one thread keeps a kRing-deep ring of 64-position K/V
+//   tiles in flight with TMA (cp.async.bulk.tensor over a (Dh, Hkv, T, B)
+//   tensor map of the view, built per call because every layer's view
+//   has its own base; full / empty mbarriers).  Positions at or past
+//   kv_len and columns past Dh arrive as zeros.
+// * Warpgroups 1 and 2 each own 64 rows.  S = Q.K^T is one wgmma
+//   m64n64k16 per 16 columns of Dh, Q and K both read from shared memory
+//   by descriptor.  O += P.V is wgmma with P as the register A operand:
+//   the fp32 S fragments of 16 keys are converted in place to bf16 pairs,
+//   which is exactly the A fragment layout (as FlashAttention-3 does);
+//   V's [key][d] rows are the B operand through the descriptor's
+//   transpose bit.  The two warpgroups' softmax and products interleave
+//   on the SM's schedulers.
+// * Shared-memory layout: every tile row is 128 bytes of one 64-column
+//   "atom" in TMA's 128-byte swizzle; Dh > 64 takes two atoms.  Dh = 80
+//   (zamba2, 160-byte rows, which no single 128-byte swizzle atom fits)
+//   is one full atom and one of 16 columns whose other 48 are TMA's zero
+//   fill: Q.K^T runs 5 k-steps (none on the fill), P.V one n64 and one
+//   n16 instruction.  Q is loaded once by the consumers themselves (any
+//   G, any q strides) into the same swizzled layout.
+// * The softmax runs in base 2 with scale * log2(e) folded in once; the
+//   causal / kv_len mask runs only on tiles that cross kv_len or the
+//   diagonal of the warpgroup's first row.
+// * CTAs are issued longest-first (the last query rows walk the most
+//   tiles).
+// A view TMA cannot map (a stride TMA refuses) takes the SIMT kernel.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -237,10 +267,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
 }
 
-// ---- the tensor-core variant for the bf16 pair ---------------------------
-
-constexpr int kMmaWarps = 4;             // 16 rows each: kRows rows a CTA
-constexpr int kMmaThreads = 32 * kMmaWarps;
+// ---- helpers of the bf16 variant --------------------------------------
 
 __device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const unsigned*>(&v);
@@ -249,46 +276,6 @@ __device__ __forceinline__ unsigned pack_pair(const __nv_bfloat16* p) {
   return static_cast<unsigned>(__bfloat16_as_ushort(p[0])) |
          (static_cast<unsigned>(__bfloat16_as_ushort(p[1])) << 16);
 }
-// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices from shared memory, transposed: thread t gives
-// the row address of matrix t / 8 and receives, of matrix i in r[i], the
-// elements (2 (t % 4), t / 4) and (2 (t % 4) + 1, t / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // max / sum over the 4 lanes that share a fragment row (lane bits 0-1)
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -299,112 +286,371 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int DH> constexpr int mma_smem_bytes() {
-  return 2 * 2 * kTile * (DH + 8) * 2;   // 2 buffers x (K, V) x bf16
+// ---- the Hopper variant for the bf16 pair: TMA + wgmma --------------------
+
+constexpr int kWgRows = 64;                 // rows per consumer warpgroup
+constexpr int kCtaRows = 2 * kWgRows;       // two consumer warpgroups
+constexpr int kKvTile = 64;                 // KV positions per tile
+// K/V tiles in flight: as many as fit beside Q in 227 KB of shared
+// memory (8 of 16 KB for Dh <= 64; 6 of 32 KB above)
+template <int NA> __host__ __device__ constexpr int ring_depth() {
+  return NA == 1 ? 8 : 6;
+}
+constexpr int kWgThreads = 3 * 128;         // producer + 2 consumers
+constexpr int kAtom = kKvTile * 128;        // a 64-row tile of one atom
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 2^x in one MUFU.EX2 (exp2f adds range checks around it)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+// A wgmma shared-memory descriptor of a tile of 128-byte rows in the
+// 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B; rows 1024-byte
+// aligned in groups of 8): start address >> 4, both byte offsets 1024
+// (the 8-row group stride; with at most 64 columns an instruction reads
+// no other stride), layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// one arrival for the warp, once all its lanes are past this point
+__device__ __forceinline__ void mbar_arrive_warp(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(n)
+               : "memory");
+}
+// one TMA box of the (Dh, Hkv, T, B) map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int t,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pin registers in place around the asynchronous wgmma: no read moves
+// above a wait, no write below a fence
+template <int N> __device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(unsigned (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
+// d (64 x 64, fp32) {+}= A (64 x 16, smem desc) . B (64 x 16, smem desc)^T;
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 registers) . B (16 x 16, smem
+// desc, N contiguous: transposed)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 registers) . B (16 x 32, smem
+// desc, N contiguous: transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 48, fp32) += A (64 x 16, bf16 registers) . B (16 x 48, smem
+// desc, N contiguous: transposed)
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers) . B (16 x 64, smem
+// desc, N contiguous: transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2 > 0 ? N / 2 : 1],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int sq, int hkv, int g, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, int q_offset, int kv_len,
-    int causal, float scale) {
-  constexpr int KS = DH / 16;            // k-steps of Q.K^T
-  constexpr int NB = DH / 8;             // 8-wide column blocks of the output
-  constexpr int LD = DH + 8;             // [key][d] row, bf16 (+16 bytes)
-  constexpr int kVecs = kTile * DH / 8;  // 16-byte vectors in a K tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vbuf = kbuf + 2 * kTile * LD;   // 2 buffers each
+constexpr int wgmma_smem_bytes() {
+  constexpr int NA = (DH + 63) / 64;
+  return 1024 + NA * kCtaRows * 128 + ring_depth<NA>() * 2 * NA * kAtom;
+}
 
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int h = hkv * g;
+// Grid: one CTA per (128-row block, b, kv head), the (b, kv head) pairs
+// fastest so that neighbouring CTAs read different K/V, the row blocks
+// longest-first; 384 threads: warpgroup 0 is the producer (one thread
+// issues the TMA loads), warpgroups 1 and 2 each own 64 (query, head)
+// rows.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_prefill_wgmma(
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    int bsz, int sq, int hkv, int g, long long qsb, long long qst,
+    long long qsh, int q_vec, int q_offset, int kv_len, int causal,
+    float scale2) {
+  constexpr int NA = (DH + 63) / 64;        // 64-column atoms of a row
+  constexpr int kRing = ring_depth<NA>();
+  constexpr int KS = DH / 16;               // k-steps of Q.K^T
+  constexpr int N0 = DH < 64 ? DH : 64;     // P.V columns in atom 0
+  constexpr int N1 = DH - N0;               // ... and in atom 1
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = base;                         // [NA][128 rows][128 B]
+  unsigned char* ks = qs + NA * kCtaRows * 128;     // [kRing][NA][64][128 B]
+  unsigned char* vs = ks + kRing * NA * kAtom;      // [kRing][NA][64][128 B]
+  __shared__ __align__(8) uint64_t full[kRing], empty[kRing];
+
+  const int pairs = bsz * hkv, pair = blockIdx.x % pairs;
+  const int b = pair / hkv, hk = pair - b * hkv;
   const long long n_rows = static_cast<long long>(sq) * g;
-  const long long f0 =
-      static_cast<long long>(gridDim.x - 1 - blockIdx.x) * kRows;
-  const long long f_last = min(f0 + kRows, n_rows) - 1;
+  const long long f0 = static_cast<long long>(
+      gridDim.x / pairs - 1 - blockIdx.x / pairs) * kCtaRows;
+  const long long f_last = min(f0 + kCtaRows, n_rows) - 1;
   int kv_end = kv_len;
   if (causal)
     kv_end = min(kv_end, q_offset + static_cast<int>(f_last / g) + 1);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
-  const __nv_bfloat16* vb = v + b * ksb + hk * ksh;
-
-  // issue the copies of tile [t0, t0 + 64) into buffer buf
-  auto load_tile = [&](int buf, int t0) {
-    const int n_t = min(kTile, kv_end - t0);
-    __nv_bfloat16* kd = kbuf + buf * kTile * LD;
-    __nv_bfloat16* vd = vbuf + buf * kTile * LD;
-    for (int x = tid; x < kVecs; x += kMmaThreads) {
-      const int t = x / (DH / 8), d = (x - t * (DH / 8)) * 8;
-      const bool full = t < n_t;
-      const long long off = full ? (t0 + t) * kst + d : 0;
-      cp_async16(kd + t * LD + d, kb + off, full);
-      cp_async16(vd + t * LD + d, vb + off, full);
+  const int n_tiles = (max(kv_end, 0) + kKvTile - 1) / kKvTile;
+  // the warpgroup index through a shuffle, so that the compiler sees it
+  // (and all that follows from it) as warp-uniform: a wgmma on a path it
+  // takes for divergent is serialized (ptxas C7518)
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 4);          // one arrival a warp
     }
-  };
-  if (kv_end > 0) load_tile(0, 0);
-  cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // this thread's two fragment rows: r = grp and grp + 8 of the warp's 16
-  long long f[2];
-  bool live_row[2];
+  if (wg == 0) {                            // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kRing;
+        mbar_wait(&empty[s], ((j / kRing) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * NA * kAtom);
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          tma_load(ks + (s * NA + a) * kAtom, &kmap, &full[s], a * 64, hk,
+                   j * kKvTile, b);
+          tma_load(vs + (s * NA + a) * kAtom, &vmap, &full[s], a * 64, hk,
+                   j * kKvTile, b);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1, ct = tid & 127;
+  const int warp = ct >> 5, lane = ct & 31, grp = lane >> 2, tig = lane & 3;
+  const long long fw = f0 + cw * kWgRows;   // the warpgroup's first row
+
+  // Q: the warpgroup's 64 rows into the swizzled atoms (16-byte chunk c
+  // of row r at chunk c ^ (r % 8)), zeros past Sq * G and Dh
+  for (int x = ct; x < kWgRows * NA * 8; x += 128) {
+    const int rr = x / (NA * 8), a = (x / 8) % NA, c = x % 8;
+    const int d0 = a * 64 + c * 8;
+    const long long f = fw + rr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (f < n_rows && d0 < DH) {
+      const long long qi = f / g;
+      const int gi = static_cast<int>(f - qi * g);
+      const __nv_bfloat16* src = q + b * qsb + qi * qst + (hk * g + gi) * qsh +
+                                 d0;
+      if (q_vec) {
+        val = *reinterpret_cast<const uint4*>(src);
+      } else {
+        val.x = pack_pair(src);
+        val.y = pack_pair(src + 2);
+        val.z = pack_pair(src + 4);
+        val.w = pack_pair(src + 6);
+      }
+    }
+    *reinterpret_cast<uint4*>(qs + a * kCtaRows * 128 +
+                              (cw * kWgRows + rr) * 128 +
+                              ((c ^ (rr & 7)) << 4)) = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+
+  // this thread's two rows (warp * 16 + grp and + 8 of the warpgroup's)
   int qpos[2];
-  const __nv_bfloat16* qrow[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    f[u] = f0 + warp * 16 + grp + 8 * u;
-    live_row[u] = f[u] < n_rows;
-    const long long ff = live_row[u] ? f[u] : f0;
-    const long long qi = ff / g;
-    const int gi = static_cast<int>(ff - qi * g);
-    qpos[u] = q_offset + static_cast<int>(qi);
-    qrow[u] = q + b * qsb + qi * qst + (hk * g + gi) * qsh;
+    const long long f = fw + warp * 16 + grp + 8 * u;
+    qpos[u] = q_offset + static_cast<int>((f < n_rows ? f : fw) / g);
   }
-  unsigned qf[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int c = s * 16 + tig * 2;
-    qf[s][0] = live_row[0] ? pack_pair(qrow[0] + c) : 0u;
-    qf[s][1] = live_row[1] ? pack_pair(qrow[1] + c) : 0u;
-    qf[s][2] = live_row[0] ? pack_pair(qrow[0] + c + 8) : 0u;
-    qf[s][3] = live_row[1] ? pack_pair(qrow[1] + c + 8) : 0u;
+  // the warpgroup's own KV limit, and the first position any of its
+  // rows cannot see (tiles below it need no causal mask)
+  int kv_end_w = 0, q_first = 0;
+  if (fw < n_rows) {
+    kv_end_w = kv_len;
+    if (causal)
+      kv_end_w = min(kv_end_w, q_offset + static_cast<int>(
+                                   min(fw + kWgRows, n_rows) - 1) / g + 1);
+    q_first = q_offset + static_cast<int>(fw / g);
   }
+  const int n_tiles_w = __shfl_sync(
+      0xffffffffu, (max(kv_end_w, 0) + kKvTile - 1) / kKvTile, 0);
+  q_first = __shfl_sync(0xffffffffu, q_first, 0);
 
-  float o[NB][4];
+  float o0[N0 / 2], o1[N1 / 2 > 0 ? N1 / 2 : 1];
 #pragma unroll
-  for (int n = 0; n < NB; ++n)
+  for (int i = 0; i < N0 / 2; ++i) o0[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int i = 0; i < (N1 / 2 > 0 ? N1 / 2 : 1); ++i) o1[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  unsigned pa[4][4];                        // P of the previous tile, bf16
+  float sc[32];                             // S of this tile, then its P
+  const unsigned q_addr = smem_u32(qs) + cw * kWgRows * 128;
 
-  for (int t0 = 0, buf = 0; t0 < kv_end; t0 += kTile, buf ^= 1) {
-    const int n_t = min(kTile, kv_end - t0);
-    if (t0 + kTile < kv_end) load_tile(buf ^ 1, t0 + kTile);
-    cp_async_commit();
-    cp_async_wait1();          // this tile's copies have landed
-    __syncthreads();
-    const __nv_bfloat16* kt = kbuf + buf * kTile * LD;
-    const __nv_bfloat16* vt = vbuf + buf * kTile * LD;
-
-    // S = Q . K^T for the warp's 16 rows x 64 keys: 8 blocks of 8 keys
-    float sc[8][4];
+  // S = Q.K^T of tile j (64 rows x 64 keys, fp32), not waited for
+  auto issue_s = [&](int j) {
+    const int s = j % kRing;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
+    for (int k = 0; k < KS; ++k)
+      wgmma_ss_n64(sc,
+                   desc_sw128(q_addr + (k / 4) * kCtaRows * 128 +
+                              (k % 4) * 32),
+                   desc_sw128(smem_u32(ks + (s * NA + k / 4) * kAtom) +
+                              (k % 4) * 32),
+                   k > 0);
+    wg_commit();
+  };
+  // O += P.V of tile jp: P rounded to bf16 as the register A operand (the
+  // S fragments of 16 keys are exactly its layout), V's [key][d] rows as
+  // the transposed B operand, one instruction per 64-column atom
+  auto issue_pv = [&](int jp) {
+    const int sp = jp % kRing;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
-      const __nv_bfloat16* kr = kt + (nb * 8 + grp) * LD + tig * 2;
-#pragma unroll
-      for (int s = 0; s < KS; ++s)
-        mma_bf16(sc[nb], qf[s],
-                 *reinterpret_cast<const unsigned*>(kr + s * 16),
-                 *reinterpret_cast<const unsigned*>(kr + s * 16 + 8));
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_pv<N0>(o0, pa[kk],
+                   desc_sw128(smem_u32(vs + sp * NA * kAtom) + kk * 2048));
+      if constexpr (N1 > 0)
+        wgmma_pv<N1>(o1, pa[kk],
+                     desc_sw128(smem_u32(vs + (sp * NA + 1) * kAtom) +
+                                kk * 2048));
     }
-
-    // mask, online softmax over the two rows this thread holds
+    wg_commit();
+  };
+  // the online softmax of tile j in base 2 on the raw scores in sc, the
+  // scale * log2(e) folded into one FMA.  Two instances: an edge tile
+  // (one that crosses kv_len or the causal diagonal of the warpgroup's
+  // first row) is masked; an inner tile, every key of which every row
+  // sees, runs no mask arithmetic at all and has a finite row max.
+  // Leaves P in sc and each row's rescale factor in alpha.
+  float alpha[2];
+  auto softmax = [&](int j, auto edge_tag) {
+    constexpr bool edge = decltype(edge_tag)::value;
+    const int t0 = j * kKvTile;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       float mx = kNegInf;
@@ -412,117 +658,211 @@ __global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma(
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int pos = t0 + nb * 8 + tig * 2 + e;
-          const bool live = live_row[u] && pos < kv_len &&
-                            (!causal || pos <= qpos[u]);
-          float& x = sc[nb][2 * u + e];
-          x = live ? x * scale : kNegInf;
+          float& x = sc[nb * 4 + 2 * u + e];
+          if constexpr (edge) {
+            const int pos = t0 + nb * 8 + tig * 2 + e;
+            if (pos >= kv_len || (causal && pos > qpos[u])) x = kNegInf;
+          }
           mx = fmaxf(mx, x);
         }
       mx = quad_max(mx);
       const float m_new = fmaxf(m[u], mx);
+      const float off = -m_new * scale2;
       float sum = 0.f;
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = sc[nb][2 * u + e];
-          x = m_new <= kNegInf ? 0.f : expf(x - m_new);
+          float& x = sc[nb * 4 + 2 * u + e];
+          if constexpr (edge)
+            x = m_new <= kNegInf ? 0.f : ex2(fmaf(x, scale2, off));
+          else
+            x = ex2(fmaf(x, scale2, off));
           sum += x;
         }
-      sum = quad_sum(sum);
-      const float alpha = expf(m[u] - m_new);
-      l[u] = l[u] * alpha + sum;
+      alpha[u] = ex2((m[u] - m_new) * scale2);
+      l[u] = l[u] * alpha[u] + quad_sum(sum);
       m[u] = m_new;
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        o[n][2 * u] *= alpha;
-        o[n][2 * u + 1] *= alpha;
-      }
     }
+  };
+  auto softmax_tile = [&](int j) {
+    const int t0 = j * kKvTile;
+    if (t0 + kKvTile > kv_len || (causal && t0 + kKvTile - 1 > q_first))
+      softmax(j, std::true_type{});
+    else
+      softmax(j, std::false_type{});
+  };
+  // rescale O by alpha, then P to bf16 A fragments
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int nb = 0; nb < N0 / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) o0[nb * 4 + 2 * u + e] *= alpha[u];
+#pragma unroll
+      for (int nb = 0; nb < N1 / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) o1[nb * 4 + 2 * u + e] *= alpha[u];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
 
-    // O += P . V over 16-key steps; P rounded to bf16 as the A fragment,
-    // V as B fragments through ldmatrix.trans of its [key][d] rows
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s * 16 >= n_t) break;
-      const unsigned pa[4] = {
-          as_u32(__floats2bfloat162_rn(sc[2 * s][0], sc[2 * s][1])),
-          as_u32(__floats2bfloat162_rn(sc[2 * s][2], sc[2 * s][3])),
-          as_u32(__floats2bfloat162_rn(sc[2 * s + 1][0], sc[2 * s + 1][1])),
-          as_u32(__floats2bfloat162_rn(sc[2 * s + 1][2], sc[2 * s + 1][3]))};
-      const __nv_bfloat16* vrow =
-          vt + (s * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-          8 * (lane >> 4);
-#pragma unroll
-      for (int n = 0; n < NB; n += 2) {
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, vrow + n * 8);
-        mma_bf16(o[n], pa, vf[0], vf[1]);
-        mma_bf16(o[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();   // this buffer is refilled two tiles on
+  // Tile j's S is issued together with tile j - 1's P.V, so the softmax
+  // of tile j runs while the tensor cores finish P.V; a tile's buffers are
+  // released (one arrival a warp) once its P.V is done.  Registers the
+  // wgmmas read or write are fenced only before a stage's wgmma.fence and
+  // after its last wait, never in between (else ptxas serializes them).
+  if (n_tiles_w > 0) {
+    mbar_wait(&full[0], 0);
+    wg_fence();
+    issue_s(0);
+    wg_wait<0>();
+    reg_fence(sc);
+    softmax_tile(0);
+    rescale_and_pack();
+  }
+  for (int j = 1; j < n_tiles_w; ++j) {
+    mbar_wait(&full[j % kRing], (j / kRing) & 1);
+    reg_fence(pa);
+    reg_fence(o0);
+    reg_fence(o1);
+    wg_fence();
+    issue_s(j);
+    issue_pv(j - 1);
+    wg_wait<1>();                           // S is done, P.V may run on
+    reg_fence(sc);
+    softmax_tile(j);
+    wg_wait<0>();
+    reg_fence(o0);
+    reg_fence(o1);
+    mbar_arrive_warp(&empty[(j - 1) % kRing]);
+    rescale_and_pack();
+  }
+  if (n_tiles_w > 0) {                      // the last tile's P.V
+    reg_fence(pa);
+    reg_fence(o0);
+    reg_fence(o1);
+    wg_fence();
+    issue_pv(n_tiles_w - 1);
+    wg_wait<0>();
+    reg_fence(o0);
+    reg_fence(o1);
+    mbar_arrive_warp(&empty[(n_tiles_w - 1) % kRing]);
+  }
+  for (int j = n_tiles_w; j < n_tiles; ++j) {   // past this warpgroup's rows
+    mbar_wait(&full[j % kRing], (j / kRing) & 1);
+    mbar_arrive_warp(&empty[j % kRing]);
   }
 
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    if (!live_row[u]) continue;
-    const long long qi = f[u] / g;
-    const int gi = static_cast<int>(f[u] - qi * g);
-    __nv_bfloat16* orow = out + ((static_cast<long long>(b) * sq + qi) * h
-                                 + hk * g + gi) * DH;
+    const long long f = fw + warp * 16 + grp + 8 * u;
+    if (f >= n_rows) continue;
+    const long long qi = f / g;
+    const int gi = static_cast<int>(f - qi * g);
+    __nv_bfloat16* orow = out + ((static_cast<long long>(b) * sq + qi) * g *
+                                     hkv + hk * g + gi) * DH;
     const float inv = 1.f / fmaxf(l[u], 1e-30f);
 #pragma unroll
-    for (int n = 0; n < NB; ++n)
-      *reinterpret_cast<unsigned*>(orow + n * 8 + tig * 2) = as_u32(
-          __floats2bfloat162_rn(o[n][2 * u] * inv, o[n][2 * u + 1] * inv));
+    for (int nb = 0; nb < N0 / 8; ++nb)
+      *reinterpret_cast<unsigned*>(orow + nb * 8 + tig * 2) =
+          pack_bf16(o0[nb * 4 + 2 * u] * inv, o0[nb * 4 + 2 * u + 1] * inv);
+#pragma unroll
+    for (int nb = 0; nb < N1 / 8; ++nb)
+      *reinterpret_cast<unsigned*>(orow + 64 + nb * 8 + tig * 2) =
+          pack_bf16(o1[nb * 4 + 2 * u] * inv, o1[nb * 4 + 2 * u + 1] * inv);
   }
+}
+
+// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (the
+// library links no libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The (Dh, Hkv, T, B) map of a K or V view, boxes of 64 columns x 64
+// positions of one (b, kv head) in the 128-byte swizzle; positions at or
+// past kv_len, columns past Dh read as zeros.  False where TMA cannot
+// take the view.
+bool kv_map(CUtensorMap* map, const void* base, int dh, int hkv, int t,
+            int b, long long sh, long long st, long long sb) {
+  auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)hkv, (cuuint64_t)t,
+                        (cuuint64_t)b};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {64, 1, kKvTile, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int hkv, int g, long long qsb, long long qst,
-               long long qsh, long long ksb, long long kst, long long ksh,
-               int q_offset, int kv_len, int causal, float scale,
-               cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<DH>();
-  auto kern = flash_prefill_mma<DH>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int b, int sq, int hkv, int g, long long qsb, long long qst,
+                 long long qsh, long long ksb, long long kst, long long ksh,
+                 int q_offset, int kv_len, int causal, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  const int t = kv_len > 0 ? kv_len : 1;
+  if (!kv_map(&kmap, k, DH, hkv, t, b, ksh, kst, ksb) ||
+      !kv_map(&vmap, v, DH, hkv, t, b, ksh, kst, ksb))
+    return -1;
+  constexpr int smem = wgmma_smem_bytes<DH>();
+  auto kern = flash_prefill_wgmma<DH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int q_vec = qsb % 8 == 0 && qst % 8 == 0 && qsh % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
   const long long n_rows = static_cast<long long>(sq) * g;
-  const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), hkv, b);
-  kern<<<grid, kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, sq, hkv, g, qsb, qst,
-      qsh, ksb, kst, ksh, q_offset, kv_len, causal, scale);
+  const long long n_ctas = (n_rows + kCtaRows - 1) / kCtaRows * b * hkv;
+  kern<<<(unsigned)n_ctas, kWgThreads, smem, stream>>>(
+      kmap, vmap, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, b, sq, hkv,
+      g, qsb, qst, qsh, q_vec, q_offset, kv_len, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-// The bf16 pair on the tensor cores where Dh is a multiple of 16 up to
-// 128 and the K/V rows are whole 16-byte vectors; -1 when it does not
+// The bf16 pair on TMA + wgmma where Dh is a multiple of 16 up to 128 and
+// the K/V views are whole 16-byte rows TMA takes; -1 when it does not
 // apply (the SIMT kernel takes the call).
-int try_mma(const void* q, const void* k, const void* v, void* out, int b,
-            int sq, int hkv, int g, int dh, long long qsb, long long qst,
-            long long qsh, long long ksb, long long kst, long long ksh,
-            int q_offset, int kv_len, int causal, float scale,
-            cudaStream_t s) {
+int try_wgmma(const void* q, const void* k, const void* v, void* out, int b,
+              int sq, int hkv, int g, int dh, long long qsb, long long qst,
+              long long qsh, long long ksb, long long kst, long long ksh,
+              int q_offset, int kv_len, int causal, float scale,
+              cudaStream_t s) {
   if (dh % 16 || dh > 128 || ksb % 8 || kst % 8 || ksh % 8 ||
       reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
     return -1;
-#define TARDIS_MMA(D)                                                      \
-  case D:                                                                  \
-    return launch_mma<D>(q, k, v, out, b, sq, hkv, g, qsb, qst, qsh, ksb,  \
-                         kst, ksh, q_offset, kv_len, causal, scale, s);
+#define TARDIS_WGMMA(D)                                                      \
+  case D:                                                                    \
+    return launch_wgmma<D>(q, k, v, out, b, sq, hkv, g, qsb, qst, qsh, ksb,  \
+                           kst, ksh, q_offset, kv_len, causal, scale, s);
   switch (dh) {
-    TARDIS_MMA(16) TARDIS_MMA(32) TARDIS_MMA(48) TARDIS_MMA(64)
-    TARDIS_MMA(80) TARDIS_MMA(96) TARDIS_MMA(112) TARDIS_MMA(128)
+    TARDIS_WGMMA(16) TARDIS_WGMMA(32) TARDIS_WGMMA(48) TARDIS_WGMMA(64)
+    TARDIS_WGMMA(80) TARDIS_WGMMA(96) TARDIS_WGMMA(112) TARDIS_WGMMA(128)
   }
-#undef TARDIS_MMA
+#undef TARDIS_WGMMA
   return -1;
 }
 
@@ -595,7 +935,7 @@ extern "C" int tardis_flash_prefill(
                                         qst, qsh, ksb, kst, ksh, q_offset,
                                         kv_len, causal, scale, s);
   if (q_dtype == 1 && kv_dtype == 1) {
-    const int r = try_mma(q, k, v, out, b, sq, hkv, g, dh, qsb, qst, qsh,
+    const int r = try_wgmma(q, k, v, out, b, sq, hkv, g, dh, qsb, qst, qsh,
                           ksb, kst, ksh, q_offset, kv_len, causal, scale, s);
     if (r >= 0) return r;
     return launch<__nv_bfloat16, __nv_bfloat16>(

@@ -130,6 +130,10 @@ def attn_decode(p, cfg, x, kc, vc, cur_idx):
     return out.reshape(b, 1, -1) @ p["wo"], kc, vc
 
 
+def _paged_kernel_eligible(pool_rows) -> bool:
+    return pool_rows.is_cuda
+
+
 def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
                       v_off: int, *, pool_off: int = 0, chunk: int):
     """One-token decode where the KV cache lives in LeaseEngine pool pages.
@@ -149,7 +153,7 @@ def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
     k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope)
     hk, dh = cfg.n_kv_heads, cfg.head_dim()
     kd, vd = k.to(pool_rows.dtype), v.to(pool_rows.dtype)
-    if pool_rows.is_cuda:
+    if _paged_kernel_eligible(pool_rows):
         from ..kernels.decode_attention.ops import paged_decode_attention
         out = paged_decode_attention(
             q, kd, vd, pool_rows, page_rows, lengths, chunk=chunk,

@@ -165,3 +165,80 @@ def test_cuda_decode_attention_routes_to_k5(cuda):
         DK.dense_decode(q[..., :62].reshape(2, 2, 4, 62).contiguous(),
                         kc[..., :62], vc[..., :62], cur)
     assert DK.dense_decode.launches == n0 + 1
+
+
+def _split_edges(n_split, t):
+    """kv_len at 1, around the split count (where the per-CTA share and
+    the number of live splits change) and at T."""
+    return sorted({1, n_split - 1, n_split, n_split + 1, 2 * n_split + 1,
+                   t - 1, t} - {0})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_cuda_dense_decode_split_edges(cuda, g, d):
+    """K5 at every kv_len edge of its device-side split, G 1 / 4 / 8 and
+    Dh 64 / 80 / 128, bf16, over a strided layer view."""
+    b, hk, t = 2, 2, 1024
+    arrs = _inputs(b, hk * g, hk, d, t, g + d)
+    q, kc, vc = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
+    stacked = torch.stack([vc, kc, vc])
+    n_split = DK.dense_split(b * hk, "mma", t, DK._sm_count(q.device))
+    for kv_len in _split_edges(n_split, t):
+        kvl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+        got = DK.dense_decode(q.reshape(b, hk, g, d), stacked[1], stacked[2],
+                              kvl)
+        want = dense_decode_attention_ref(q, kc, vc, kvl)
+        torch.testing.assert_close(got.reshape(b, 1, hk * g, d).float(),
+                                   want.float(), rtol=2 ** -7, atol=1e-5,
+                                   msg=lambda m: f"kv_len {kv_len}: {m}")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_decode_repeats_and_replays_in_a_graph(cuda):
+    """The cluster's CTAs fold the splits in the same launch and leave
+    nothing behind: two calls in a row agree to the bit, and a captured
+    graph replayed with kv_len changed on the device agrees with the
+    plain version each time (0 at kv_len = 0)."""
+    b, hk, g, d, t = 4, 4, 8, 64, 4096
+    arrs = _inputs(b, hk * g, hk, d, t, 11)
+    q, kc, vc = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
+    qg = q.reshape(b, hk, g, d)
+    kvl = torch.tensor(3000, dtype=torch.int32, device=cuda)
+    first = DK.dense_decode(qg, kc, vc, kvl)
+    assert torch.equal(first, DK.dense_decode(qg, kc, vc, kvl))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DK.dense_decode(qg, kc, vc, kvl)
+    for kv_len in (3000, 1, 257, 4096, 0, 2048):
+        kvl.fill_(kv_len)
+        graph.replay()
+        want = dense_decode_attention_ref(q, kc, vc, kv_len)
+        if kv_len == 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            continue
+        torch.testing.assert_close(out.reshape(b, 1, hk * g, d).float(),
+                                   want.float(), rtol=2 ** -7, atol=1e-5,
+                                   msg=lambda m: f"kv_len {kv_len}: {m}")
+
+
+def test_dense_split_fills_the_card():
+    """K5's split: one wave of CTAs over the SMs, at most one cluster of
+    MAX_SPLIT CTAs a pair, never more splits than rounds of positions in
+    the cache, at least one; the tensor-core variant takes the bf16 pair
+    at its Dh, the SIMT variant the rest."""
+    n_sm, bf16, f32 = 132, torch.bfloat16, torch.float32
+    mma = DK._variant(bf16, bf16, 8, 64)
+    assert mma == DK._variant(bf16, bf16, 1, 80) == "mma"
+    assert DK._variant(f32, bf16, 8, 64) == 8
+    assert DK._variant(bf16, bf16, 1, 8) == DK._variant(f32, f32, 1, 80) == 1
+    assert DK._variant(bf16, bf16, 4, 144) == 4
+    assert DK.dense_split(16, mma, 4096, n_sm) == 6        # tinyllama
+    assert DK.dense_split(128, mma, 4096, n_sm) == 1       # zamba2
+    assert DK.dense_split(4, mma, 4096, n_sm) == DK.MAX_SPLIT == 8
+    assert DK.dense_split(128, 1, 4096, n_sm) == 4     # zamba2, fp32 q
+    assert DK.dense_split(16, 8, 4096, n_sm) == 8
+    assert DK.dense_split(1, mma, 64, n_sm) == 64 // DK.MIN_SPLIT_POSITIONS
+    assert DK.dense_split(10 ** 6, 8, 4096, n_sm) == 1
+    assert DK.dense_split(3, 1, 1, n_sm) == 1

@@ -220,3 +220,60 @@ def test_cuda_flash_prefill_reads_cache_views_and_masks_dead_rows(cuda):
     assert FK.flash_prefill.launches == n0 + 1
     with pytest.raises(TypeError):               # bf16 q over fp32 K/V
         FK.flash_prefill(q.bfloat16(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len", [
+    (200, 200, 0, None),         # Sq * G not a multiple of 128 at G = 1
+    (16, 80, 64, 80),            # the paged suffix (16 queries at 64)
+    (77, 160, 60, 100),          # kv_len below q_offset + Sq
+])
+def test_cuda_flash_prefill_wgmma_shapes(cuda, d, g, sq, skv, q_offset,
+                                         kv_len):
+    """The bf16 pair's TMA + wgmma variant at each Dh it tiles differently
+    (one 64-column atom, one and a fifth, two), G 1 and 8, ragged row
+    counts, the suffix shape and kv_len cutting the causal window, over a
+    layer view of a stacked cache (strided, read in place by the tensor
+    map): within the P rounding bound of the plain version."""
+    hk = 2
+    arrs = _inputs(2, sq, skv, hk * g, hk, d, sq + d + g)
+    q = torch.from_numpy(arrs[0]).to(cuda, torch.bfloat16)
+    k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs[1:])
+    stacked = torch.stack([v, k, v])
+    n0 = FK.flash_prefill.launches
+    got = FK.flash_prefill(q, stacked[1], stacked[2], q_offset=q_offset,
+                           kv_len=kv_len)
+    assert FK.flash_prefill.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9 * float(v.abs().max()) + 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hk,d", [(32, 4, 64), (32, 32, 80)])
+def test_cuda_flash_prefill_bf16_bound_at_the_wave_shapes(cuda, h, hk, d):
+    """The 2^-9 max|v| bound (plus one bf16 rounding step) at both wave
+    paths' prefill shapes (tinyllama, zamba2), 3072 positions, one
+    request."""
+    arrs = _inputs(1, 3072, 3072, h, hk, d, h + d)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
+    got = FK.flash_prefill(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9 * float(v.abs().max()) + 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prefill_bf16_dead_rows_are_zero(cuda):
+    """A bf16 row with no live key gives 0 on the wgmma variant, as on the
+    SIMT one."""
+    arrs = _inputs(1, 40, 64, 8, 2, 64, 9)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
+    dead = FK.flash_prefill(q, k, v, causal=False, kv_len=0)
+    assert torch.equal(dead, torch.zeros_like(dead))
+    got = FK.flash_prefill(q, k, v, q_offset=0, kv_len=20)   # rows >= 20 live
+    want = flash_attention_ref(q, k, v, q_offset=0, kv_len=20)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9 * float(v.abs().max()) + 1e-5)

@@ -1,0 +1,124 @@
+"""``chip_smoke.py``'s phase 4 check on the CPU, at a tiny config: the
+teacher-forced three runs of each bf16 lane (card, CPU bf16, fp32 anchor),
+the norm check that holds the card's logits to at most twice the plain
+bf16 path's distance from the anchor, and the wrapper-level off-by-ones
+of ``--phase4-mutants`` that it must fail.  The card's place is taken by a
+second CPU run with the kernel route forced, so the wrappers (their plain
+versions here) run where the card runs the kernels."""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from repro_torch.configs import get_arch, reduced
+from repro_torch.models import attention, layers, transformer
+from repro_torch.runtime import Request
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """Every eligibility check that sends a CUDA call to K4-K6 and K8 says
+    yes on CPU tensors too."""
+    monkeypatch.setattr(attention, "_flash_kernel_eligible",
+                        lambda q, k, window: window == 0)
+    monkeypatch.setattr(attention, "_kernel_eligible",
+                        lambda q, kc, cur, min_t: q.shape[1] == 1
+                        and torch.as_tensor(cur).dim() == 0)
+    monkeypatch.setattr(layers, "_rmsnorm_kernel_eligible", lambda x: True)
+    monkeypatch.setattr(transformer, "_paged_kernel_eligible", lambda p: True)
+
+
+TINY = reduced(get_arch("tinyllama-1.1b"))
+
+
+def test_norm_check_holds_within_twice_the_cpu_distance():
+    rng = np.random.default_rng(0)
+    anchor = [rng.standard_normal((4, 50)) * 5 for _ in range(3)]
+    noise = [rng.standard_normal((4, 50)) * 0.1 for _ in range(3)]
+    cpu = [a + n for a, n in zip(anchor, noise)]
+    ok, steps = cs.norm_check([a + 1.5 * n for a, n in zip(anchor, noise)],
+                              cpu, anchor)
+    assert ok and len(steps) == 3
+    for s in steps:
+        assert s["e_card"] == pytest.approx(1.5 * s["e_cpu"])
+        assert s["limit"] == pytest.approx(
+            2 * s["e_cpu"] + 1e-3 * np.linalg.norm(anchor[0]), rel=0.2)
+    far = [a + n for a, n in zip(anchor, noise)]
+    far[2] = anchor[2] + 3 * noise[2]          # one step off: the check fails
+    ok, steps = cs.norm_check(far, cpu, anchor)
+    assert not ok and [s["ok"] for s in steps] == [True, True, False]
+    # the floor: a CPU run that equals the anchor leaves 1e-3 |anchor|
+    ok, _ = cs.norm_check([a + 1e-4 for a in anchor], anchor, anchor)
+    assert ok
+
+
+@pytest.mark.parametrize("lane", ["paged", "wave"])
+def test_teacher_forced_runs_feed_the_anchor_tokens(kernel_route, lane):
+    """The anchor (fp32 weights) decodes greedily; the other runs are fed
+    its tokens, so every run sees the same inputs at every step; two runs
+    of the same path agree to the bit."""
+    params = cs._phase4_params(TINY, 0)
+    if lane == "paged":
+        run, reqs = cs._tf_paged, cs._requests(Request, np, TINY.vocab, n=4)
+    else:
+        run = cs._tf_wave
+        reqs = cs._wave_requests(Request, np, TINY.vocab, n=5, lo=10, hi=20)
+    anchor, fed = run(TINY, cs._cast(params, torch.float32), "cpu", reqs)
+    assert len(anchor) == cs.PHASE4_STEPS + 1
+    assert fed.shape == (len(reqs), cs.PHASE4_STEPS)
+    for j in range(cs.PHASE4_STEPS):      # greedy: each step's argmax fed
+        np.testing.assert_array_equal(fed[:, j], anchor[j].argmax(-1))
+    bf16, fed2 = run(TINY, params, "cpu", reqs, fed)
+    np.testing.assert_array_equal(fed2, fed)
+    again, _ = run(TINY, params, "cpu", reqs, fed)
+    for a, b, c in zip(anchor, bf16, again):
+        assert a.shape == b.shape == (len(reqs), TINY.vocab)
+        np.testing.assert_array_equal(b, c)
+        assert 0 < np.linalg.norm(b - a) < 0.1 * np.linalg.norm(a)
+
+
+def test_phase4_lanes_hold_with_the_cpu_in_the_cards_place(kernel_route):
+    paged = cs.phase4_card_vs_cpu("cpu", 0, hold=True, card="cpu", cfg=TINY)
+    assert paged["new_ok"] and paged["old_ok"]
+    assert paged["new_ratio"] == pytest.approx(1.0)
+    wave = cs.phase4_wave_card_vs_cpu(
+        "cpu", 0, hold=True, card="cpu", archs=("tinyllama-1.1b",),
+        cfgs={"tinyllama-1.1b": TINY})["tinyllama-1.1b"]
+    assert wave["new_ok"] and wave["new_ratio"] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("mutant", list(cs.MUTANTS))
+def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
+    memo = {}
+    for lane in cs.MUTANTS[mutant]:
+        kw = dict(hold=False, memo=memo, card="cpu")
+        if lane == "paged":
+            clean = cs.phase4_card_vs_cpu("cpu", 1, cfg=TINY, **kw)
+            with cs.inject(mutant):
+                bad = cs.phase4_card_vs_cpu("cpu", 1, cfg=TINY, **kw)
+        else:
+            wkw = dict(kw, archs=("tinyllama-1.1b",),
+                       cfgs={"tinyllama-1.1b": TINY})
+            clean = cs.phase4_wave_card_vs_cpu(
+                "cpu", 1, **wkw)["tinyllama-1.1b"]
+            with cs.inject(mutant):
+                bad = cs.phase4_wave_card_vs_cpu(
+                    "cpu", 1, **wkw)["tinyllama-1.1b"]
+        assert clean["new_ok"], (lane, clean)
+        assert not bad["new_ok"] and bad["new_ratio"] > cs.NORM_FACTOR, \
+            (lane, bad)
+
+
+def test_phase4_mutants_mode_misses_nothing(kernel_route):
+    assert cs.phase4_mutants("cpu", [2], card="cpu",
+                             cfgs={"paged": TINY, "wave": TINY}) == []
+
+
+def test_inject_restores_the_wrapper():
+    from repro_torch.kernels.rmsnorm import ops as nops
+    orig = nops.rmsnorm_2d
+    with pytest.raises(RuntimeError):
+        with cs.inject("K8 weight rolled"):
+            assert nops.rmsnorm_2d is not orig
+            raise RuntimeError
+    assert nops.rmsnorm_2d is orig
