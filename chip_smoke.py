@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
   2. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (tinyllama-1.1b full width: token row 11264,
      chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit, K4 within
-     the bf16 (3e-2, and one bf16 ulp) and fp32 (2e-4) tolerances; median
-     times (CUDA events): each kernel's and library call's device time
+     the bf16 (3e-2, and one bf16 ulp: its tensor-core variant) and fp32
+     (2e-4: its SIMT variant) tolerances; median times (CUDA events):
+     each kernel's and library call's device time
      (CUDA-graph replay), the eager wrapper call and the eager plain
      version, and each kernel's bound (the larger of its bytes at
      3.35 TB/s and its ops at the peak of their type: fp32 67 TFLOP/s,
@@ -18,8 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
   3. the main path: ``ServingCluster`` serving full-width, full-depth
      tinyllama-1.1b (random bf16 weights from a seeded generator) on the
      card -- 8 requests sharing a 64-token system prompt -- with every
-     kernel's launch count set to 0 before and read after; then the path
-     again, warm, timed plain and then under ``torch.profiler`` (device
+     kernel's launch count set to 0 before and read after (K4's, and on
+     the zamba2 wave path K7's, all on the tensor-core variant); then the
+     path again, warm, timed plain and then under ``torch.profiler`` (device
      busy/idle share, time by kernel and kind, host time by operator);
      Then the fixed-wave dense-cache path, twice at full width and depth:
      tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
@@ -40,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught):
      anchor's norm (``norm_check``); then the wave path the same way --
      tinyllama at 2 layers in bf16 and zamba2 at 6 layers (one group) in
      fp32 weights (its bf16 arithmetic is chaotic; the bf16 run's distance
-     is printed; its first decode step held to the bf16 tolerance), 2048-
-     slot caches, short prompts;
+     is printed; its first decode step held to the bf16 tolerance) and,
+     teacher-forced with the norm check, in bf16 (K7's tensor-core variant
+     in the prefill), 2048-slot caches, short prompts;
   5. the kernel JSON line, then the result line.
 Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
 version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
@@ -50,12 +53,14 @@ SDPA over the live slice as its library yardstick; and the prefill
 kernels: K6 (causal GQA flash prefill) at both wave paths' 4 x 3072-token
 prompts (bf16; zamba2 also fp32) and the paged suffix prefill (16
 queries at q_offset 64, kv_len 80) against SDPA, K7 (the SSD intra-chunk
-scan) at zamba2's (b 4, 12 chunks of 256, 80 heads, N = P = 64; bf16 and
-fp32 inputs), K8 (RMSNorm) at the prefill rows (4 x 3072) of tinyllama's
-norms and zamba2's gated norm and at a decode step's 8 rows, every
-(x, w) dtype mix, against ``F.rms_norm``.  K6's bound takes the bf16
-tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8 launch
-on the paged path and both wave paths and K7 on zamba2's.
+scan) at zamba2's (b 4, 12 chunks of 256, 80 heads, N = P = 64; bf16
+inputs on its tensor-core variant, bound by its bytes or its three-part
+bf16 products at 989 TFLOP/s; fp32 inputs on its SIMT variant, timed
+beside its fp32 bound), K8 (RMSNorm) at the prefill rows (4 x 3072) of
+tinyllama's norms and zamba2's gated norm and at a decode step's 8 rows,
+every (x, w) dtype mix, against ``F.rms_norm``.  K6's bound takes the
+bf16 tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8
+launch on the paged path and both wave paths and K7 on zamba2's.
 
     python3 chip_smoke.py --phase4-seeds 0,1,2,3
     python3 chip_smoke.py --phase4-mutants 0,1,2,3
@@ -65,10 +70,12 @@ weights and requests drawn from each seed: ``--phase4-seeds`` one JSON
 line per seed (the retired max ratio and the norm check of each bf16
 lane, the zamba2 lane's ratio); ``--phase4-mutants`` each bf16 lane clean
 and under each wrapper-level off-by-one (K6 q_offset + 1, K4 lengths - 1,
-K5 kv_len - 1, K8's weight rolled), both checks' readings a line, then
+K5 kv_len - 1, K8's weight rolled, K7's cum shifted by one position on
+the zamba2 lanes), both checks' readings a line, then
 which seeds each check fails for each injection (exit 1 if the new check
 misses one the retired check caught).  Phase 1 also counts the HGMMA
-instructions (K6's wgmma) in the library's SASS.
+instructions (K6's wgmma) in the library's SASS, and the HMMA
+instructions (mma.sync) of K4's and K7's tensor-core variants.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -163,6 +170,15 @@ def bound(nbytes, nops, peak=FP32_FLOPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def variant_of(wrapper, call):
+    """``call()`` and the variant of the one launch it made of a wrapper
+    that counts its kernels by variant (K4, K7)."""
+    before = dict(wrapper.variants)
+    out = call()
+    (v,) = [k for k, n in wrapper.variants.items() if n != before.get(k, 0)]
+    return out, v
+
+
 def max_err(a, b):
     import torch
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -183,14 +199,36 @@ def phase1_card_and_build():
     _build.library()
     log(f"built {lib.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.1f} s")
-    # K6's bf16 variant must issue wgmma: HGMMA in the library's SASS
+    # K6's bf16 variant must issue wgmma (HGMMA in the library's SASS),
+    # K4's and K7's tensor-core variants mma.sync (HMMA)
+    n_hgmma = sum(sass_counts(lib, "HGMMA").values())
+    log(f"cuobjdump -sass {lib.name}: {n_hgmma} HGMMA instructions")
+    assert n_hgmma, "no HGMMA in the kernel library: K6 issues no wgmma"
+    hmma = sass_counts(lib, "HMMA")
+    for kernel in ("paged_decode_mma", "ssd_chunk_mma"):
+        found = {f: n for f, n in hmma.items() if kernel in f}
+        log(f"  HMMA in {kernel}: {len(found)} instances, "
+            f"{sorted(found.values())} instructions")
+        assert found and all(found.values()), f"no HMMA in {kernel}"
+    return smi
+
+
+def sass_counts(lib, opcode):
+    """{kernel function: instructions of ``opcode``} in the library's SASS
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    n_hgmma = sass.count("HGMMA")
-    log(f"cuobjdump -sass {lib.name}: {n_hgmma} HGMMA instructions")
-    assert n_hgmma, "no HGMMA in the kernel library: K6 issues no wgmma"
-    return smi
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and any(t.startswith(opcode + ".") or t == opcode
+                        for t in line.split()):
+            counts[fn] += 1
+    return {f: n for f, n in counts.items() if n}
 
 
 def phase2_kernels(rows):
@@ -313,7 +351,11 @@ def phase2_kernels(rows):
                               ("fp32", torch.float32, torch.float32, FP32)):
         pv = view if pd == torch.bfloat16 else view.float()
         args = (q.to(qd), ck.to(pd), cv.to(pd), pv, page_rows, lengths)
-        got = DK.paged_decode(*args, chunk=chunk, k_off=k_off, v_off=v_off)
+        got, variant = variant_of(DK.paged_decode, lambda: DK.paged_decode(
+            *args, chunk=chunk, k_off=k_off, v_off=v_off))
+        # bf16: the tensor-core variant; fp32: the SIMT variant
+        assert variant == ("mma" if pd == torch.bfloat16 else "simt"), \
+            f"K4 {name} took the {variant} variant"
         want = paged_decode_attention_ref(
             args[0].reshape(b, 1, hkv * grp_q, dh),
             args[1].reshape(b, 1, hkv, dh), args[2].reshape(b, 1, hkv, dh),
@@ -327,7 +369,8 @@ def phase2_kernels(rows):
             torch.testing.assert_close(got.float(), want.float(), **BF16_ULP)
         errs[name] = max_err(got.float(), want.float())
         del pv
-    log(f"K4 paged_decode max |err|: {errs}")
+    log(f"K4 paged_decode max |err|: {errs} (bf16: tensor-core variant; "
+        f"fp32: SIMT)")
     args = (q.to(torch.bfloat16), ck.to(torch.bfloat16),
             cv.to(torch.bfloat16), view, page_rows, lengths)
 
@@ -367,6 +410,7 @@ def phase2_kernels(rows):
         "decode_attention/csrc/paged_decode.cu", replaces="src/repro/"
         "kernels/decode_attention/kernel.py:146", max_abs_err=errs["bf16"],
         shape=f"B={b} P={p_max} Hkv={hkv} G={grp_q} dh={dh} bf16",
+        variant="mma",
         **timings(lambda: DK.paged_decode(*args, chunk=chunk, k_off=k_off,
                                           v_off=v_off), plain, library),
         **dict(zip(("bound_ms", "bound_by"),
@@ -386,7 +430,8 @@ def _log_row(r):
         f"{r['plain_ms'] * 1e3:9.2f} us  bound {r['bound_ms'] * 1e3:8.3f}"
         f" us ({r['bound_by']})  library "
         + (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
-           is not None else "-") + f"  [{r['shape']}]")
+           is not None else "-") + f"  [{r['shape']}"
+        + (f"; {r['variant']} variant]" if r.get("variant") else "]"))
 
 
 def phase2_dense_decode(rows):
@@ -581,41 +626,60 @@ def phase2_prefill_kernels(rows):
     dt = F.softplus(randn(b, s, h))
     A = -torch.exp(0.5 * randn(h))
     cum = torch.cumsum((dt * A).reshape(b, nc, chunk, h), dim=2)
+    tri = chunk * (chunk + 1) // 2              # (i, j) pairs with j <= i
+    # fp32 operations: C.B once per chunk (heads share it), the decayed
+    # M.xdt and the chunk states per head, the x * dt and decay products
+    nops = (2 * b * nc * tri * n + 2 * b * nc * h * tri * p
+            + b * nc * h * tri + 2 * b * nc * h * chunk * n * p
+            + 2 * b * nc * h * chunk * p)
     errs = {}
-    for tag, dtype in (("bf16", b16), ("fp32", f32)):
+    for tag, dtype, want_variant in (("bf16", b16, "mma"),
+                                     ("fp32", f32, "simt")):
         conv = conv32.to(dtype)
         xs = conv[..., :h * p].reshape(b, s, h, p)
         bs, cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
-        y, st = SK.ssd_chunk(xs, dt, cum, bs, cs, chunk=chunk)
+        (y, st), variant = variant_of(SK.ssd_chunk, lambda: SK.ssd_chunk(
+            xs, dt, cum, bs, cs, chunk=chunk))
+        assert variant == want_variant, f"K7 {tag} took the {variant} variant"
         wy, wst = ssd_chunk_ref(xs, dt, cum, bs, cs, chunk=chunk)
         torch.testing.assert_close(y, wy, **FP32)
         torch.testing.assert_close(st, wst, **FP32)
         errs[tag] = max(max_err(y, wy), max_err(st, wst))
         del y, st, wy, wst
-    log(f"K7 ssd_chunk max |err|: {errs}")
+        if dtype == f32:
+            # the fp32 pair runs the SIMT variant: its time and fp32 bound
+            ms = graph_ms(lambda: SK.ssd_chunk(xs, dt, cum, bs, cs,
+                                               chunk=chunk), 5)
+            log(f"  ssd_chunk fp32 (SIMT variant): {ms * 1e3:.2f} us, bound "
+                f"{bound(0, nops)[0] * 1e3:.3f} us (operations at 67 TFLOP/s "
+                f"fp32)")
+        del conv, xs, bs, cs
+    log(f"K7 ssd_chunk max |err|: {errs} (bf16: tensor-core variant; fp32: "
+        f"SIMT)")
     conv = conv32.to(b16)
     xs = conv[..., :h * p].reshape(b, s, h, p)
     bs, cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
-    tri = chunk * (chunk + 1) // 2              # (i, j) pairs with j <= i
     # bytes: x, B, C (bf16), dt and cum read once, y_intra and S written
-    # once; operations: C.B once per chunk (heads share it), the decayed
-    # M.xdt and the chunk states per head, the x * dt and decay products
+    # once; operations of the tensor-core variant at the bf16 peak: C.B
+    # once per chunk, the decayed M'.x and the chunk states per head, each
+    # of these two in three bf16 parts
     nbytes = (2 * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h
               + b * nc * chunk * h) + 4 * (b * nc * chunk * h * p
                                            + b * nc * h * p * n))
-    nops = (2 * b * nc * tri * n + 2 * b * nc * h * tri * p
-            + b * nc * h * tri + 2 * b * nc * h * chunk * n * p
-            + 2 * b * nc * h * chunk * p)
+    tc_ops = (2 * b * nc * tri * n + 3 * 2 * b * nc * h * tri * p
+              + 3 * 2 * b * nc * h * chunk * n * p)
     add(dict(
         name="ssd_chunk", wrapper="ssd_chunk", path="zamba2-2.7b",
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:42",
         max_abs_err=errs["bf16"],
         shape=f"b={b} nc={nc} Q={chunk} heads={h} N={n} P={p} x/B/C bf16",
+        variant="mma",
         **timings(lambda: SK.ssd_chunk(xs, dt, cum, bs, cs, chunk=chunk),
                   lambda: ssd_chunk_ref(xs, dt, cum, bs, cs, chunk=chunk),
                   iters=5, plain_iters=2),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops)))))
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, tc_ops, BF16_TC_FLOPS)))))
     del conv32, conv, xs, bs, cs, dt, cum
     torch.cuda.empty_cache()
 
@@ -752,7 +816,8 @@ def phase3_main_path(smi):
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     from repro_torch.models import init_params
     cfg = get_arch("tinyllama-1.1b")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -760,6 +825,7 @@ def phase3_main_path(smi):
     reset_launch_counts()
     cluster, done, report, dt = _serve(cfg, params, "cuda", 4096, 512)
     counts = launch_counts()
+    variants = variant_counts()
     n_tok = sum(len(r.output) for r in done)
     assert all(r.done and len(r.output) == r.max_new for r in done)
     assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
@@ -772,8 +838,12 @@ def phase3_main_path(smi):
         {k: (int(v) if isinstance(v, (int, np.integer)) else v)
          for k, v in report.items()}))
     log(f"launches on the main path: {counts}")
+    log(f"launches by variant on the main path: {variants}")
     missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    # every K4 launch of the bf16 path on the tensor-core variant
+    assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
+        f"K4 launches by variant: {variants['paged_decode']}"
     del cluster
     profile_main_path(cfg, params, smi)
     del params
@@ -823,7 +893,8 @@ def phase3_wave_paths(smi):
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     from repro_torch.models import init_params, param_leaves
     out = {}
     for arch, kw in WAVE_PATHS:
@@ -838,6 +909,7 @@ def phase3_wave_paths(smi):
         reset_launch_counts()
         cluster, done, report, dt = serve()
         counts = launch_counts()
+        variants = variant_counts()
         n_tok = sum(len(r.output) for r in done)
         assert all(r.done and len(r.output) == r.max_new for r in done)
         assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
@@ -851,9 +923,14 @@ def phase3_wave_paths(smi):
             {k: (int(v) if isinstance(v, (int, np.integer)) else v)
              for k, v in report.items()}))
         log(f"launches on the {arch} wave path: {counts}")
+        log(f"launches by variant on the {arch} wave path: {variants}")
         missing = [k for k in WAVE_KERNELS[arch] if counts[k] <= 0]
         assert not missing, \
             f"kernels never launched on the {arch} wave path: {missing}"
+        # every K7 launch of the bf16 path on the tensor-core variant
+        assert variants["ssd_chunk"] == ({"mma": counts["ssd_chunk"]}
+                                         if counts["ssd_chunk"] else {}), \
+            f"K7 launches by variant: {variants['ssd_chunk']}"
         del cluster
         torch.cuda.empty_cache()
         # the run above already timed the path without the profiler
@@ -878,7 +955,8 @@ PHASE4_STEPS = 4        # teacher-forced decode steps after the prefill
 MUTANTS = {"K6 q_offset+1": ("paged", "wave"),
            "K4 lengths-1": ("paged",),
            "K5 kv_len-1": ("wave",),
-           "K8 weight rolled": ("paged", "wave")}
+           "K8 weight rolled": ("paged", "wave"),
+           "K7 cum shifted": ("zamba2",)}
 
 
 def _hold_logits(label, pre_c, tok_g, tok_c, step_g, step_c, hold=True):
@@ -1187,7 +1265,9 @@ def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True, memo=None,
     CPU), short prompts.  A serving run on each device: identical integer
     counters (held) and the first step's logits (``_hold_logits``): held
     on the zamba2 fp32 lane, printed on the tinyllama bf16 lane, whose
-    check is the teacher-forced norm check (``_teacher_forced``).  zamba2
+    check is the teacher-forced norm check (``_teacher_forced``); zamba2
+    also runs that check in bf16 (the readings it returns are that lane's
+    beside the fp32 lane's retired ratio).  zamba2
     runs in fp32 (weights drawn in bf16, then widened) because its bf16
     arithmetic is chaotic: the same weights run in bf16 on the card land
     far from the fp32 logits (printed), so two bf16 runs that round a few
@@ -1255,6 +1335,13 @@ def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True, memo=None,
                     f"{np.abs(lb - first_c['logits']).max():.4g} against "
                     f"the fp32 run on the cpu (max |logit| "
                     f"{np.abs(first_c['logits']).max():.4g})")
+            # its bf16 lane, teacher-forced: the prefill's K7 on the
+            # tensor-core variant (bf16 conv views), K5, K6, K8
+            reqs = _wave_requests(Request, np, cfg.vocab, **short)
+            res.update(_teacher_forced(
+                label.replace("float32 weights", "bfloat16 weights"), "wave",
+                cfg, params_bf16, reqs, card, hold, memo,
+                ("wave", arch, seed)))
         else:
             reqs = _wave_requests(Request, np, cfg.vocab, **short)
             res.update(_teacher_forced(label, "wave", cfg, params_bf16, reqs,
@@ -1290,11 +1377,14 @@ def inject(name):
     the ``with`` body: the ops module's reference to the kernel wrapper
     is swapped for one that shifts one argument (no kernel source is
     edited) -- K6 called with q_offset + 1, K4 with lengths - 1, K5 with
-    kv_len - 1, K8 with its weight rolled by one column."""
+    kv_len - 1, K8 with its weight rolled by one column, K7 with the
+    within-chunk cumulative decay shifted one position later (cum'_i =
+    cum_{i-1}, cum'_0 = cum_0)."""
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rmsnorm import ops as nops
+    from repro_torch.kernels.ssd_scan import ops as sops
 
     def k6(fn):
         return lambda q, k, v, **kw: fn(q, k, v, **{
@@ -1310,10 +1400,15 @@ def inject(name):
     def k8(fn):
         return lambda x, w, **kw: fn(x, torch.roll(w, 1), **kw)
 
+    def k7(fn):
+        return lambda x, dt, cum, B, C, **kw: fn(x, dt, torch.cat(
+            [cum[:, :, :1], cum[:, :, :-1]], 2), B, C, **kw)
+
     mod, attr, wrap = {"K6 q_offset+1": (fops, "flash_prefill", k6),
                        "K4 lengths-1": (dops, "paged_decode", k4),
                        "K5 kv_len-1": (dops, "dense_decode", k5),
-                       "K8 weight rolled": (nops, "rmsnorm_2d", k8)}[name]
+                       "K8 weight rolled": (nops, "rmsnorm_2d", k8),
+                       "K7 cum shifted": (sops, "ssd_chunk", k7)}[name]
     orig = getattr(mod, attr)
     setattr(mod, attr, wrap(orig))
     try:
@@ -1337,18 +1432,19 @@ def phase4_mutants(smi, seeds, card="cuda", cfgs=None):
             out["paged"] = phase4_card_vs_cpu(
                 smi, seed, hold=False, memo=memo, card=card,
                 cfg=cfgs.get("paged"))
-        if "wave" in which:
-            out["wave"] = phase4_wave_card_vs_cpu(
-                smi, seed, hold=False, memo=memo, card=card,
-                archs=("tinyllama-1.1b",),
-                cfgs={"tinyllama-1.1b": cfgs.get("wave")})["tinyllama-1.1b"]
+        for lane, arch in (("wave", "tinyllama-1.1b"),
+                           ("zamba2", "zamba2-2.7b")):
+            if lane in which:
+                out[lane] = phase4_wave_card_vs_cpu(
+                    smi, seed, hold=False, memo=memo, card=card,
+                    archs=(arch,), cfgs={arch: cfgs.get(lane)})[arch]
         return out
 
     fails = {}
     for seed in seeds:
         memo = {}
         print(json.dumps({"seed": seed, "mutant": None,
-                          **lanes(seed, memo, ("paged", "wave"))}),
+                          **lanes(seed, memo, ("paged", "wave", "zamba2"))}),
               flush=True)
         for name, which in MUTANTS.items():
             with inject(name):
@@ -1413,13 +1509,14 @@ def main() -> int:
     stamp("phase 4 (wave paths)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "launch_ms", "shape")
+            "library_ms", "call_ms", "launch_ms", "shape", "variant")
     # each kernel's launches on the path its row names (K1-K4: the paged
     # main path)
     path_counts = {"paged": counts, **wave_counts}
     for r in rows:
         r["launches"] = path_counts[r.get("path", "paged")][
             r.get("wrapper", r["name"])]
+        r.setdefault("variant", None)
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

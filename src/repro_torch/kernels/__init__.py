@@ -14,7 +14,8 @@ from typing import Callable, Dict
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper of the port by name; each carries an integer
     ``launches`` that counts the launches of its kernel (and nothing
-    else)."""
+    else); a wrapper with several kernels (K4, K7) also counts them by
+    variant in ``variants``."""
     from .decode_attention import kernel as da
     from .flash_attention import kernel as fa
     from .rmsnorm import kernel as rn
@@ -35,6 +36,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    return {name: dict(fn.variants) for name, fn in wrappers().items()
+            if hasattr(fn, "variants")}
+
+
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()

@@ -2,12 +2,13 @@
 
 Every ``csrc/*.cu`` under ``repro_torch/kernels`` has a plain C interface
 (pointers as ``void*``, the stream last, ``cudaGetLastError()`` returned),
-so no PyTorch header is compiled.  At first use the sources are compiled
+so no PyTorch header is compiled; device helpers shared by several
+kernels live in ``include/*.cuh``.  At first use the sources are compiled
 for ``sm_90a`` -- one ``nvcc -c`` per source, all started together -- and
 linked into ONE shared library under ``build/kernels/<hash>/`` at the repo
-root (listed in ``.gitignore``); the hash covers the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once.  Nothing is
-built or loaded at import time.
+root (listed in ``.gitignore``); the hash covers the sources, the shared
+headers and the flags, so an edited source or header rebuilds and an
+unchanged tree loads at once.  Nothing is built or loaded at import time.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import List
 
 _PKG = Path(__file__).resolve().parent
 BUILD_ROOT = _PKG.parents[2] / "build" / "kernels"
+INCLUDE = _PKG / "include"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"] + ARCH_FLAGS
 LIB_NAME = "libtardis_kernels.so"
@@ -42,9 +44,14 @@ def _nvcc() -> str:
     return nvcc
 
 
+def headers() -> List[Path]:
+    """The device headers the sources include, in a stable order."""
+    return sorted(INCLUDE.glob("*.cuh"))
+
+
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -66,7 +73,8 @@ def build(verbose: bool = False) -> Path:
     for s in srcs:           # one nvcc per source, all in flight together
         obj = tmp / (s.stem + ".o")
         procs.append((s, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, f"-I{INCLUDE}", *extra, "-c", str(s), "-o",
+             str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
     for s, _obj, p in procs:
@@ -97,8 +105,8 @@ SIGNATURES = {
     "tardis_write_advance": [_VP] * 3 + [_I32, _I32] + [_VP] * 4,
     "tardis_gather_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
     "tardis_scatter_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
-    "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32,
-                                                       _I32, _I32, _VP, _VP]),
+    "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32]
+                            + [_I32] * 4 + [_VP, _VP]),
     "tardis_dense_decode": ([_VP] * 4 + [_I32] * 6 + [_I64] * 3
                             + [_F32, _I32, _I32, _I32, _VP]),
     "tardis_flash_prefill": ([_VP] * 4 + [_I32] * 5 + [_I64] * 6
@@ -131,6 +139,14 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev) -> int:
+    """The card's streaming multiprocessors (the wrappers size their grids
+    by it)."""
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def ptr(t) -> ctypes.c_void_p:

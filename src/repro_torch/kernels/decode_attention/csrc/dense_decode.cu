@@ -57,12 +57,11 @@
 //   nothing reset.  (A first version combined through global partials
 //   and an atomic ticket taken by the last CTA: its tail of dependent L2
 //   round trips cost more.)
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "tardis_hopper.cuh"
 
 namespace {
 
@@ -72,17 +71,6 @@ constexpr int kMmaWarps = 8;    // a CTA of the tensor-core variant
 constexpr int kStages = 4;       // cp.async ring depth, per lane
 constexpr int kUnroll = 2;       // position rows per lane per stage
 constexpr int kHeadChunk = 8;    // query heads per CTA, at most
-constexpr int kMaxSplit = 8;     // CTAs of a pair: the portable cluster
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
-  return __float2bfloat16(x);
-}
 
 // A 16-byte vector of K or V as fp32: 4 floats or 8 bf16 (the element at
 // the lower address sits in the low half of each 32-bit word).
@@ -113,28 +101,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// 2^x in one MUFU.EX2 (exp2f adds range checks around it)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The (m, l, acc) of this lane merged with the lane `o` apart (same Dh
 // slice, other positions).
 template <int NG, int NE>
@@ -153,88 +119,6 @@ __device__ __forceinline__ void merge_lanes(float (&m)[NG], float (&l)[NG],
       const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
       acc[gi][e] = acc[gi][e] * a + ao * b;
     }
-  }
-}
-
-// Row stride (floats) of the warps' acc in the CTA merge: padded by 8 so
-// that the 8 head rows a warp stores at once fall in different banks.
-__host__ __device__ constexpr int acc_stride(int dh) { return dh + 8; }
-
-// Bytes of dynamic shared memory before the partials: the ring, or the
-// warps' (m, l, acc) of the CTA merge (which reuse it) where larger.
-__host__ __device__ __forceinline__ size_t part_offset(size_t ring, int w,
-                                                       int ng_max, int dh) {
-  const size_t merge = sizeof(float) * w * ng_max * (2 + acc_stride(dh));
-  return ((ring > merge ? ring : merge) + 15) / 16 * 16;
-}
-
-// The pair's output from its CTAs, which form one thread-block cluster.
-// Each CTA merges its warps' (m, l, acc) (wml [W][2][NG], wacc
-// [W][NG][acc_stride(dh)] in shared memory) into its partial and stores
-// it into its slot of EVERY CTA's `parts` ([n_split] slots of [2][NG]
-// then [NG][dh], in shared memory beside them) through distributed shared
-// memory; one cluster barrier (release / acquire) makes the stores
-// visible; then each CTA folds its share of the output columns from its
-// own shared memory and exits -- no remote loads, no second barrier.  No
-// global scratch, no atomics, no second launch.  (Pulling the partials
-// with remote loads between two barriers, or pushing them to rank 0 only
-// behind an mbarrier, measured slower on the card.)
-template <typename TQ, int NG, int W>
-__device__ __forceinline__ void finish_cluster(const float* wml,
-                                               const float* wacc,
-                                               float* parts, int ng, int dh,
-                                               TQ* __restrict__ ob) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  const int n_split = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int ws = acc_stride(dh), slot = 2 * NG + NG * dh;
-  for (int x = tid; x < ng * dh; x += W * 32) {
-    const int gi = x / dh, d = x - gi * dh;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < W; ++w) mx = fmaxf(mx, wml[w * 2 * NG + gi]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const float f = ex2(wml[w * 2 * NG + gi] - mx);
-      ls += wml[(w * 2 + 1) * NG + gi] * f;
-      as += wacc[(w * NG + gi) * ws + d] * f;
-    }
-    for (int r = 0; r < n_split; ++r) {
-      float* dst = cluster.map_shared_rank(parts, r) + rank * slot;
-      dst[2 * NG + x] = as;
-      if (d == 0) {
-        dst[gi] = mx;
-        dst[NG + gi] = ls;
-      }
-    }
-  }
-  cluster.sync();
-  for (int x = rank * W * 32 + tid; x < ng * dh; x += n_split * W * 32) {
-    const int gi = x / dh;
-    float mr[kMaxSplit], lr[kMaxSplit], ar[kMaxSplit];
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      mr[r] = kNegInf;
-      lr[r] = ar[r] = 0.f;
-      if (r < n_split) {
-        mr[r] = parts[r * slot + gi];
-        lr[r] = parts[r * slot + NG + gi];
-        ar[r] = parts[r * slot + 2 * NG + x];
-      }
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) mx = fmaxf(mx, mr[r]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      const float f = ex2(mr[r] - mx);
-      ls += lr[r] * f;
-      as += ar[r] * f;
-    }
-    ob[x] = from_f32<TQ>(as / fmaxf(ls, 1e-30f));
   }
 }
 
@@ -314,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(
   float m[NG], l[NG], acc[NG][NE];
 #pragma unroll
   for (int gi = 0; gi < NG; ++gi) {
-    m[gi] = kNegInf;
+    m[gi] = kTardisNegInf;
     l[gi] = 0.f;
 #pragma unroll
     for (int e = 0; e < NE; ++e) acc[gi][e] = 0.f;
@@ -410,75 +294,7 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(
       ng, dh, ob);
 }
 
-// max / sum over the 4 lanes that share a fragment row (lane bits 0-1)
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---- the tensor-core variant for the bf16 pair -----------------------------
-
-constexpr int kMmaPos = 16;      // positions per warp stage
-
-__device__ __forceinline__ unsigned pack_pair(const __nv_bfloat16* p) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(p[0])) |
-         (static_cast<unsigned>(__bfloat16_as_ushort(p[1])) << 16);
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
-                                         unsigned a2, unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-// four 8 x 8 bf16 matrices from shared memory: thread t gives the row
-// address of matrix t / 8 and receives, of matrix i in r[i], the elements
-// (t / 4, 2 (t % 4)) and (t / 4, 2 (t % 4) + 1) -- transposed with .trans
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-// the 16-byte chunk c of row r in a swizzled row of `pitch` bytes
-__device__ __forceinline__ int swz(int r, int c, int pitch) {
-  return r * pitch + (((c & ~7) | ((c ^ r) & 7)) << 4);
-}
-
-// A warp's ring: as many stages as fit in 12 KB (3 at Dh <= 64, so that
-// two 8-warp CTAs fit an SM and a cluster of 8 lands on 4 SMs), at least 2
-template <int DH> struct MmaTile {
-  static constexpr int kPitch = (DH + 63) / 64 * 128;  // bytes a row
-  static constexpr int kTile = kMmaPos * kPitch;        // one K or V tile
-  static constexpr int kStages =
-      12288 / (2 * kTile) > 2 ? 12288 / (2 * kTile) : 2;
-  static constexpr int kBytes = kMmaWarps * kStages * 2 * kTile;
-};
 
 // The bf16 pair with Dh a multiple of 16: each warp stages 16
 // positions of K and V at a time (cp.async into rows swizzled by 16-byte
@@ -492,7 +308,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) dense_decode_mma(
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len_ptr,
     int hkv, int g, int t_max, int n_hc, long long sb, long long st,
     long long sh, float scale2, __nv_bfloat16* __restrict__ out) {
-  using Tile = MmaTile<DH>;
+  using Tile = DecodeRing<DH, kMmaWarps>;
   constexpr int KS = DH / 16, ND = DH / 8, CH = DH / 8;
   constexpr int NST = Tile::kStages, PITCH = Tile::kPitch;
   extern __shared__ uint4 ring[];         // [kMmaWarps][NST][K, V tiles]
@@ -522,15 +338,15 @@ __global__ void __launch_bounds__(kMmaWarps * 32) dense_decode_mma(
   const __nv_bfloat16* vb = v + b * sb + h * sh;
   unsigned char* wring =
       reinterpret_cast<unsigned char*>(ring) + warp * NST * 2 * Tile::kTile;
-  const int n_it =
-      (hi - lo + kMmaWarps * kMmaPos - 1) / (kMmaWarps * kMmaPos);
+  constexpr int kRound = kMmaWarps * kDecodeStagePos;  // a round's positions
+  const int n_it = (hi - lo + kRound - 1) / kRound;
 
   auto issue = [&](int it) {              // this warp's stage `it`
     if (it < n_it) {
-      const int base = lo + (it * kMmaWarps + warp) * kMmaPos;
+      const int base = lo + (it * kMmaWarps + warp) * kDecodeStagePos;
       unsigned char* dst = wring + (it % NST) * 2 * Tile::kTile;
 #pragma unroll
-      for (int x = lane; x < kMmaPos * CH; x += 32) {
+      for (int x = lane; x < kDecodeStagePos * CH; x += 32) {
         const int r = x / CH, c = x - r * CH;
         const bool ok = base + r < hi;
         const long long off = ok ? (base + r) * st + c * 8 : 0;
@@ -548,77 +364,15 @@ __global__ void __launch_bounds__(kMmaWarps * 32) dense_decode_mma(
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  float m = kNegInf, l = 0.f;
+  float m = kTardisNegInf, l = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     cp_async_wait<NST - 1>();
     __syncwarp();                         // every lane's copies landed
     const unsigned char* kt = wring + (it % NST) * 2 * Tile::kTile;
-    const unsigned char* vt = kt + Tile::kTile;
-    const int mi = lane >> 3;
-    // S = Q.K^T: 16 head rows x 16 positions (two n-blocks)
-    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      unsigned bf[4];
-      const int r = (mi >> 1) * 8 + (lane & 7);
-      ldmatrix_x4(bf, kt + swz(r, ks * 2 + (mi & 1), PITCH));
-      mma_bf16(sc[0], qa[ks][0], qa[ks][1], bf[0], bf[1]);
-      mma_bf16(sc[1], qa[ks][0], qa[ks][1], bf[2], bf[3]);
-    }
-    // the online softmax of head grp (its row: sc[nb][0..1]) in base 2
-    const int base = lo + (it * kMmaWarps + warp) * kMmaPos;
-    float x[2][2], mx = m;
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool live = base + nb * 8 + 2 * tig + e < hi;
-        x[nb][e] = live ? sc[nb][e] * scale2 : kNegInf;
-        mx = fmaxf(mx, x[nb][e]);
-      }
-    mx = quad_max(mx);
-    float p[2][2], sum = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[nb][e] = x[nb][e] <= kNegInf ? 0.f : ex2(x[nb][e] - mx);
-        sum += p[nb][e];
-      }
-    const float alpha = ex2(m - mx);
-    l = l * alpha + quad_sum(sum);
-    m = mx;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha;
-      acc[nd][1] *= alpha;
-    }
-    // P as three exact bf16 parts (A fragments a0 = positions 0-7, a2 =
-    // positions 8-15 of row grp)
-    unsigned pa[3][2];
-#pragma unroll
-    for (int part = 0; part < 3; ++part)
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        pa[part][nb] = pack_bf16(p[nb][0], p[nb][1]);
-        const __nv_bfloat162 r2 =
-            *reinterpret_cast<const __nv_bfloat162*>(&pa[part][nb]);
-        p[nb][0] -= __low2float(r2);
-        p[nb][1] -= __high2float(r2);
-      }
-    // O += P.V: V's [position][d] rows as B fragments through ldmatrix.trans
-#pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      unsigned vf[4];
-      ldmatrix_x4_trans(vf, vt + swz((mi & 1) * 8 + (lane & 7),
-                                     nd + (mi >> 1), PITCH));
-#pragma unroll
-      for (int part = 0; part < 3; ++part) {
-        mma_bf16(acc[nd], pa[part][0], pa[part][1], vf[0], vf[1]);
-        mma_bf16(acc[nd + 1], pa[part][0], pa[part][1], vf[2], vf[3]);
-      }
-    }
+    decode_stage<DH>(kt, kt + Tile::kTile, qa,
+                     lo + (it * kMmaWarps + warp) * kDecodeStagePos, hi,
+                     scale2, m, l, acc);
     __syncwarp();                         // the slot is read: refill it
     issue(it + NST);
   }
@@ -646,40 +400,6 @@ __global__ void __launch_bounds__(kMmaWarps * 32) dense_decode_mma(
       ng, DH, ob);
 }
 
-// Launch `kern` over (pairs, n_split) CTAs in clusters of (1, n_split):
-// one cluster per (b, kv head, head chunk) pair.
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kern)(Params...), int pairs, int n_split,
-                   int warps, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pairs, n_split, 1);
-  cfg.blockDim = dim3(32 * warps, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = n_split;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// dynamic shared memory: the ring (or the merge) and n_split partials
-size_t smem_bytes(size_t ring, int warps, int ng_max, int dh, int n_split) {
-  return part_offset(ring, warps, ng_max, dh) +
-         sizeof(float) * ng_max * (2 + dh) * n_split;
-}
-
 template <typename TQ, typename T, int NG, int GS, int NV>
 int launch_k(const void* q, const void* k, const void* v, const void* kv_len,
              int b, int hkv, int g, int dh, int t_max, int n_split,
@@ -693,7 +413,7 @@ int launch_k(const void* q, const void* k, const void* v, const void* kv_len,
                         smem_bytes(ring, kWarps, NG, dh, n_split), stream,
                         (const TQ*)q, (const T*)k, (const T*)v,
                         (const int*)kv_len, hkv, g, dh, t_max, n_hc, sb, st,
-                        sh, scale * kLog2e, (TQ*)out);
+                        sh, scale * kTardisLog2e, (TQ*)out);
 }
 
 template <typename TQ, typename T, int NG>
@@ -724,12 +444,12 @@ int launch_mma(const void* q, const void* k, const void* v,
   const int n_hc = (g + kHeadChunk - 1) / kHeadChunk;
   return launch_cluster(dense_decode_mma<DH>, b * hkv * n_hc, n_split,
                         kMmaWarps,
-                        smem_bytes(MmaTile<DH>::kBytes, kMmaWarps, kHeadChunk,
-                                   DH, n_split),
+                        smem_bytes(DecodeRing<DH, kMmaWarps>::kBytes,
+                                   kMmaWarps, kHeadChunk, DH, n_split),
                         stream,
                         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                         (const __nv_bfloat16*)v, (const int*)kv_len, hkv, g,
-                        t_max, n_hc, sb, st, sh, scale * kLog2e,
+                        t_max, n_hc, sb, st, sh, scale * kTardisLog2e,
                         (__nv_bfloat16*)out);
 }
 
@@ -796,7 +516,7 @@ extern "C" int tardis_dense_decode(const void* q, const void* k,
                                    int kv_dtype, int tensor_cores, void* out,
                                    void* stream) {
   if (b == 0 || hkv == 0 || g == 0) return (int)cudaGetLastError();
-  if (t_max <= 0 || n_split <= 0 || n_split > kMaxSplit || dh <= 0 ||
+  if (t_max <= 0 || n_split <= 0 || n_split > kTardisMaxSplit || dh <= 0 ||
       dh > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

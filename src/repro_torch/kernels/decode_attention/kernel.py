@@ -4,6 +4,9 @@ K4 ``paged_decode`` (``csrc/paged_decode.cu``) takes the grouped layout of
 the TPU kernel (``paged_decode_attention_grouped``): q (B, Hkv, G, Dh),
 cur_k/cur_v (B, Hkv, Dh), pool_rows (n_blocks*chunk, token_row), page_rows
 (B, P) int32, lengths (B,) int32, absolute ``k_off`` / ``v_off`` columns.
+Its bf16 pair at Dh a multiple of 16 up to 128 runs the tensor-core
+variant, split over the positions as K5 is (``paged_split``,
+``paged_plan``); the others run the SIMT variant.
 
 K5 ``dense_decode`` (``csrc/dense_decode.cu``) replaces
 ``decode_attention_grouped``: q (B, Hkv, G, Dh), one layer's dense caches
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import launch, ptr
+from .._build import launch, ptr, sm_count
 from .ref import dense_decode_attention_ref, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,6 +38,15 @@ HEAD_CHUNK = 8
 CTAS_PER_SM = {"mma": 0.75, 1: 4, "else": 2}
 MAX_SPLIT = 8
 MIN_SPLIT_POSITIONS = 32
+# K4's tensor-core variant: warps a CTA, positions a warp stage holds,
+# positions a CTA takes at the lengths' bound before the split grows,
+# CTAs an SM holds (4 warps, <= 64 KB of shared memory each); its
+# variants as the C entry point numbers them
+PAGED_WARPS = 4
+PAGED_STAGE = 16
+PAGED_CTA_POSITIONS = 128
+PAGED_CTAS_PER_SM = 3
+_PAGED_VARIANTS = {"simt": 0, "mma": 1, "mma_plain": 2}
 _DENSE_PAIRS = ((torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16))
@@ -73,15 +85,70 @@ def paged_decode(q, cur_k, cur_v, pool_rows, page_rows, lengths, *,
                         "one dtype")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode needs contiguous operands")
+    p_max = page_rows.shape[1]
+    variant = paged_variant(q.dtype, dh, pool_rows.data_ptr(), token_row,
+                            k_off, v_off)
+    n_split = 1 if variant == "simt" else paged_split(
+        b * hkv * -(-g // HEAD_CHUNK), p_max * chunk, sm_count(dev))
     out = torch.empty_like(q)
     launch("tardis_paged_decode", *(ptr(t) for t in tensors), b, hkv, g, dh,
-           chunk, page_rows.shape[1], token_row, k_off, v_off, float(scale),
-           _DTYPES[q.dtype], _DTYPES[pool_rows.dtype], ptr(out))
+           chunk, p_max, token_row, k_off, v_off, float(scale),
+           _DTYPES[q.dtype], _DTYPES[pool_rows.dtype], n_split,
+           _PAGED_VARIANTS[variant], ptr(out))
     paged_decode.launches += 1
+    counts = paged_decode.variants
+    counts[variant] = counts.get(variant, 0) + 1
     return out
 
 
 paged_decode.launches = 0
+paged_decode.variants = {}    # launches per variant
+
+
+def paged_variant(dtype, dh: int, pool_ptr: int, token_row: int, k_off: int,
+                  v_off: int) -> str:
+    """Which of K4's kernels takes a call: "mma" (the tensor-core variant
+    with 16-byte asynchronous copies) for the bf16 pair at Dh a multiple
+    of 16 up to 128 with the pool, the token row and the K / V columns
+    16-byte aligned; "mma_plain" (the same with plain loads) where one of
+    them is not; "simt" for the fp32 pair and any other Dh."""
+    if dtype != torch.bfloat16 or dh % 16 or dh > 128:
+        return "simt"
+    aligned = pool_ptr % 16 == 0 and not (token_row % 8 or k_off % 8
+                                          or v_off % 8)
+    return "mma" if aligned else "mma_plain"
+
+
+def paged_split(pairs: int, bound: int, n_sm: int) -> int:
+    """K4's CTAs per (request, kv head, head chunk) pair, one thread-block
+    cluster, from the lengths' bound ``bound`` = P * chunk (no host sync):
+    enough that no CTA takes more than ``PAGED_CTA_POSITIONS`` positions
+    at the bound, at most ``MAX_SPLIT`` and one wave of
+    ``PAGED_CTAS_PER_SM`` an SM."""
+    want = min(-(-bound // PAGED_CTA_POSITIONS), MAX_SPLIT,
+               PAGED_CTAS_PER_SM * n_sm // max(pairs, 1))
+    return max(1, want)
+
+
+def paged_plan(length: int, bound: int, n_split: int):
+    """The positions K4's tensor-core variant reads for a request of
+    ``length`` under the bound P * chunk, as the kernel spreads them: for
+    each CTA of the cluster, for each warp, the positions of its stages
+    in order (``PAGED_STAGE`` a stage; stage ``it`` of warp ``w`` starts
+    at ``lo + (it * PAGED_WARPS + w) * PAGED_STAGE``).  Each CTA takes
+    ``ceil(n / n_split)`` of the n = min(length, bound) live positions."""
+    n = max(0, min(length, bound))
+    per = -(-n // n_split)
+    plan = []
+    for sp in range(n_split):
+        lo = min(sp * per, n)
+        hi = min(lo + per, n)
+        n_it = -(-(hi - lo) // (PAGED_WARPS * PAGED_STAGE))
+        plan.append([[pos for it in range(n_it) for pos in range(
+            lo + (it * PAGED_WARPS + w) * PAGED_STAGE,
+            lo + (it * PAGED_WARPS + w + 1) * PAGED_STAGE) if pos < hi]
+            for w in range(PAGED_WARPS)])
+    return plan
 
 
 def dense_decode(q, k_cache, v_cache, kv_len, *, scale: float = None):
@@ -124,7 +191,7 @@ def dense_decode(q, k_cache, v_cache, kv_len, *, scale: float = None):
                          f"elements from 16-byte aligned caches")
     pairs = b * hkv * -(-g // HEAD_CHUNK)
     variant = _variant(q.dtype, k_cache.dtype, g, dh)
-    n_split = dense_split(pairs, variant, t_max, _sm_count(dev))
+    n_split = dense_split(pairs, variant, t_max, sm_count(dev))
     out = torch.empty_like(q)
     sb, st, sh, _ = k_cache.stride()
     launch("tardis_dense_decode", ptr(q), ptr(k_cache), ptr(v_cache),
@@ -158,13 +225,3 @@ def dense_split(pairs: int, variant, t_max: int, n_sm: int) -> int:
     per_sm = CTAS_PER_SM.get(variant, CTAS_PER_SM["else"])
     want = min(int(per_sm * n_sm) // pairs, MAX_SPLIT)
     return max(1, min(want, -(-t_max // MIN_SPLIT_POSITIONS)))
-
-
-_SM_COUNT = {}
-
-
-def _sm_count(dev) -> int:
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _SM_COUNT[dev]

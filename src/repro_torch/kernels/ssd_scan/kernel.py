@@ -9,18 +9,28 @@ last dim contiguous (B and C at equal strides); dt (b, s, h) fp32; cum
 zero-padded dt.  Positions past s count as the zero padding.  Returns fp32
 y_intra (b, nc, chunk, h, p) and chunk states S (b, nc, h, p, n).  On CUDA
 tensors it launches K7 and counts the launch; on CPU tensors it runs the
-plain version (:func:`.ref.ssd_chunk_ref`).
+plain version (:func:`.ref.ssd_chunk_ref`).  K7 has two variants, picked
+by :func:`ssd_variant` from the dtypes, widths and alignment (never because
+a build or launch failed): "mma", the tensor-core kernel for bf16 x, B and
+C (the serving path's conv views; its arithmetic is
+:func:`.ref.ssd_chunk_split_ref`), and "simt", the fp32 SIMT kernel for
+every other pair.
 """
 from __future__ import annotations
 
 import torch
 
-from .._build import launch, ptr
+from .._build import launch, ptr, sm_count
 from .ref import ssd_chunk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
 MAX_STATE = 256
+# the tensor-core variant: p and n at most, heads a CTA at most; CTAs an SM
+# holds (shared memory: two at n <= 64, one at n <= 128)
+MMA_MAX_P = 64
+MMA_MAX_N = 128
+MMA_MAX_HEADS = 8
 
 
 def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
@@ -53,15 +63,50 @@ def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
         raise ValueError("ssd_chunk needs contiguous last dims, B and C at "
                          "equal strides and a contiguous cum")
     bsh = 0 if B.dim() == 3 else B.stride(2)
+    strides = (*x.stride()[:3], B.stride(0), B.stride(1), bsh)
+    variant = ssd_variant(x.dtype, B.dtype, chunk, p, n, strides,
+                          (x.data_ptr(), B.data_ptr(), C.data_ptr()))
+    hpc = ssd_heads_per_cta(b * nc, h, sm_count(x.device),
+                            2 if n <= 64 else 1)
     y = torch.empty((b, nc, chunk, h, p), dtype=torch.float32,
                     device=x.device)
     S = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
     launch("tardis_ssd_chunk", ptr(x), *x.stride()[:3], ptr(dt),
            *dt.stride()[:2], ptr(cum), ptr(B), ptr(C), B.stride(0),
            B.stride(1), bsh, b, s, nc, chunk, h, p, n, _DTYPES[x.dtype],
-           _DTYPES[B.dtype], ptr(y), ptr(S))
+           _DTYPES[B.dtype], int(variant == "mma"), hpc, ptr(y), ptr(S))
     ssd_chunk.launches += 1
+    counts = ssd_chunk.variants
+    counts[variant] = counts.get(variant, 0) + 1
     return y, S
 
 
 ssd_chunk.launches = 0
+ssd_chunk.variants = {}    # launches per variant
+
+
+def ssd_variant(x_dtype, bc_dtype, chunk: int, p: int, n: int, strides,
+                ptrs) -> str:
+    """Which of K7's kernels takes a call: "mma" (tensor cores) for bf16 x
+    and B/C with the chunk a multiple of 16, p <= 64 and n <= 128 in whole
+    16-byte vectors, every stride (in elements) a multiple of 8 and the
+    data 16-byte aligned; else "simt"."""
+    if x_dtype != torch.bfloat16 or bc_dtype != torch.bfloat16:
+        return "simt"
+    if chunk % 16 or p % 8 or p > MMA_MAX_P or n % 8 or n > MMA_MAX_N:
+        return "simt"
+    if any(st % 8 for st in strides) or any(a % 16 for a in ptrs):
+        return "simt"
+    return "mma"
+
+
+def ssd_heads_per_cta(chunks: int, h: int, n_sm: int, per_sm: int) -> int:
+    """Heads a CTA of the tensor-core variant takes, for ``chunks`` (batch,
+    chunk) pairs of ``h`` heads: the k <= ``MMA_MAX_HEADS`` whose grid of
+    chunks * ceil(h / k) CTAs, in waves of ``per_sm`` an SM, ends soonest
+    (waves x k head-times), the largest such k (B and C staged the fewest
+    times)."""
+    def cost(k):
+        ctas = chunks * -(-h // k)
+        return -(-ctas // (per_sm * n_sm)) * k
+    return min(range(min(h, MMA_MAX_HEADS), 0, -1), key=cost)

@@ -6,6 +6,12 @@ C, B: (G, Q, N); xdt: (G, Q, P) (x already times dt); cum: (G, Q, 1), the
 within-chunk cumulative log-decay.  G folds (batch, chunk, head).  Returns
 fp32 (y_intra (G, Q, P), S (G, N, P)).  ``ssd_chunk_ref`` is the plain
 version of the port's kernel wrapper (the model's layout) built on it.
+
+``ssd_intra_chunk_split_ref`` / ``ssd_chunk_split_ref`` model the
+arithmetic of K7's tensor-core variant on the same contracts, with x and
+dt apart: dt folded into the decayed matrix M' and into w * B, each of
+those split into three bf16 parts, each part times the bf16 x summed in
+fp32.
 """
 from __future__ import annotations
 
@@ -52,6 +58,63 @@ def ssd_chunk_ref(x, dt, cum, B, C, *, chunk: int):
         fold(C.reshape(b, nc, chunk, h, n)), fold(B.reshape(b, nc, chunk, h,
                                                             n)),
         fold(xdt), fold(cum[..., None]))
+    y = y.reshape(b, nc, h, chunk, p).permute(0, 1, 3, 2, 4)
+    S = S.reshape(b, nc, h, n, p).transpose(-1, -2)
+    return y, S
+
+
+def bf16_parts(a, n: int = 3):
+    """``a`` (fp32) as ``n`` bf16-valued fp32 tensors whose sum is ``a`` to
+    8 significant bits a part: each rounds what the parts before it left."""
+    parts = []
+    for _ in range(n):
+        part = a.to(torch.bfloat16).float()
+        parts.append(part)
+        a = a - part
+    return parts
+
+
+def ssd_intra_chunk_split_ref(C, B, x, dt, cum):
+    """K7's tensor-core arithmetic on the folded contract: C, B (G, Q, N)
+    and x (G, Q, P) bf16-valued, dt and cum (G, Q, 1).  C . B^T in fp32;
+    M'_ij = cb_ij * exp(cum_i - cum_j) * dt_j for j <= i (no exponential
+    past the diagonal), else 0; y = sum over M''s three bf16 parts of
+    part @ x.  w_j = exp(cum_last - cum_j) * dt_j; S = sum over the parts
+    of w * B of part^T @ x.  Returns fp32 (y (G, Q, P), S (G, N, P))."""
+    c, b, xx = C.float(), B.float(), x.float()
+    dt, cum = dt.float(), cum.float()
+    q = c.shape[1]
+    cb = torch.matmul(c, b.transpose(1, 2))                   # (G, Q, Q)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=c.device))
+    seg = torch.where(tri, cum - cum.transpose(1, 2),
+                      torch.full((), -torch.inf, device=c.device))
+    m = cb * torch.exp(seg) * dt.transpose(1, 2)              # 0 past i
+    y = sum(torch.matmul(part, xx) for part in bf16_parts(m))
+    bw = b * (torch.exp(cum[:, -1:] - cum) * dt)              # (G, Q, N)
+    S = sum(torch.matmul(part.transpose(1, 2), xx)
+            for part in bf16_parts(bw))
+    return y, S
+
+
+def ssd_chunk_split_ref(x, dt, cum, B, C, *, chunk: int):
+    """:func:`ssd_chunk_ref` with the tensor-core arithmetic
+    (:func:`ssd_intra_chunk_split_ref`): the same layouts and results."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    pad = nc * chunk - s
+    if B.dim() == 3:
+        B = B[:, :, None].expand(b, s, h, n)
+        C = C[:, :, None].expand(b, s, h, n)
+    x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+    dt = F.pad(dt, (0, 0, 0, pad))
+
+    def fold(a):                            # (b, nc, q, h, k) -> (G, q, k)
+        return a.reshape(b, nc, chunk, h, a.shape[-1]).permute(
+            0, 1, 3, 2, 4).reshape(b * nc * h, chunk, a.shape[-1])
+
+    y, S = ssd_intra_chunk_split_ref(
+        fold(C), fold(B), fold(x), fold(dt[..., None]), fold(cum[..., None]))
     y = y.reshape(b, nc, h, chunk, p).permute(0, 1, 3, 2, 4)
     S = S.reshape(b, nc, h, n, p).transpose(-1, -2)
     return y, S

@@ -184,7 +184,7 @@ def test_cuda_dense_decode_split_edges(cuda, g, d):
     arrs = _inputs(b, hk * g, hk, d, t, g + d)
     q, kc, vc = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in arrs)
     stacked = torch.stack([vc, kc, vc])
-    n_split = DK.dense_split(b * hk, "mma", t, DK._sm_count(q.device))
+    n_split = DK.dense_split(b * hk, "mma", t, DK.sm_count(q.device))
     for kv_len in _split_edges(n_split, t):
         kvl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
         got = DK.dense_decode(q.reshape(b, hk, g, d), stacked[1], stacked[2],

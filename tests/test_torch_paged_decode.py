@@ -2,7 +2,10 @@
 plain version against the Pallas kernel (interpret mode), and a whole
 ``decode_step_paged`` on the reduced tinyllama config with fp32 weights
 converted through ``convert.py`` -- logits within 2e-4 and identical
-appended pool rows.  A CUDA lane holds K4 against its plain version."""
+appended pool rows.  K4's split plan (positions per warp, CTAs per
+request) covers every live position once and reads no page-table entry
+past a request's pages.  A CUDA lane holds K4 against its plain version:
+both variants, long lengths over many pages, unaligned columns."""
 import functools
 
 import numpy as np
@@ -138,6 +141,50 @@ def test_decode_step_paged_matches_jax(pool_dtype, seed):
 
 # --- CUDA lane ----------------------------------------------------------------
 
+@pytest.mark.parametrize("n_split", [1, 3, 4, 8])
+@pytest.mark.parametrize("length", [0, 1, 15, 16, 17, 100, 511, 512, 513,
+                                    2000])
+def test_paged_plan_covers_each_live_position_once(length, n_split):
+    """At chunk 16 and P = 32 (the bound 512): every position below
+    min(length, P * chunk) read exactly once, nothing past it, and so no
+    page-table entry past the request's live pages."""
+    chunk, p_max = 16, 32
+    bound = p_max * chunk
+    plan = DK.paged_plan(length, bound, n_split)
+    assert len(plan) == n_split
+    assert all(len(w) == DK.PAGED_WARPS for w in plan)
+    seen = [pos for cta in plan for warp in cta for pos in warp]
+    live = min(length, bound)
+    assert sorted(seen) == list(range(live))
+    pages = {pos // chunk for pos in seen}
+    assert pages <= set(range(-(-live // chunk)))
+    for cta in plan:                       # each warp reads runs of 16
+        for warp in cta:
+            for a, b in zip(warp, warp[1:]):
+                assert b == a + 1 or (b - warp[0]) % DK.PAGED_STAGE == 0
+
+
+def test_paged_split_and_variant():
+    """The wrapper's choice of K4's split (from P * chunk, no host sync)
+    and variant (pure functions: no card needed)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    # the paged path: B 8 x 4 kv heads, P 32 pages of 16 on 132 SMs
+    assert DK.paged_split(32, 512, 132) == 4
+    assert DK.paged_split(32, 2048 * 16, 132) == DK.MAX_SPLIT
+    assert DK.paged_split(32, 16, 132) == 1
+    assert DK.paged_split(4096, 512, 132) == 1      # the card is full
+    for pairs, bound in ((1, 1), (8, 4096), (200, 64)):
+        assert 1 <= DK.paged_split(pairs, bound, 132) <= DK.MAX_SPLIT
+    assert DK.paged_variant(bf, 64, 0, 11264, 5376, 16640) == "mma"
+    assert DK.paged_variant(bf, 16, 0, 1408, 672, 1376) == "mma"
+    assert DK.paged_variant(bf, 64, 0, 11264, 5377, 16640) == "mma_plain"
+    assert DK.paged_variant(bf, 64, 0, 11260, 5376, 16640) == "mma_plain"
+    assert DK.paged_variant(bf, 64, 8, 11264, 5376, 16640) == "mma_plain"
+    assert DK.paged_variant(f32, 64, 0, 11264, 5376, 16640) == "simt"
+    assert DK.paged_variant(bf, 24, 0, 11264, 5376, 16640) == "simt"
+    assert DK.paged_variant(bf, 256, 0, 11264, 0, 4096) == "simt"
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -183,3 +230,91 @@ def test_cuda_paged_decode_rejects_mixed_dtypes(cuda):
                         cv.reshape(b, hk, d), pool, pr, ln, chunk=chunk,
                         k_off=k_off, v_off=v_off)
     assert DK.paged_decode.launches == n0
+
+
+BF16_ULP = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step apart
+
+
+def _cuda_paged(cuda, dtype, b, h, hk, d, chunk, nb, p, seed, lengths=None,
+                k_off=None, v_off=None, row_pad=0):
+    arrs, ko, vo = _paged_inputs(b, h, hk, d, chunk, nb, p, 22, 21, seed)
+    q, ck, cv, pool, pr, ln = (torch.from_numpy(a).to(cuda) for a in arrs)
+    if lengths is not None:
+        ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if row_pad:
+        pool = torch.nn.functional.pad(pool, (0, row_pad))
+    q, ck, cv, pool = (x.to(dtype) for x in (q, ck, cv, pool))
+    ko = ko if k_off is None else k_off
+    vo = vo if v_off is None else v_off
+    g = h // hk
+    before = dict(DK.paged_decode.variants)
+    got = DK.paged_decode(q.reshape(b, hk, g, d), ck.reshape(b, hk, d),
+                          cv.reshape(b, hk, d), pool, pr, ln, chunk=chunk,
+                          k_off=ko, v_off=vo)
+    (taken,) = [k for k, n in DK.paged_decode.variants.items()
+                if n != before.get(k, 0)]
+    want = paged_decode_attention_ref(q, ck, cv, pool, pr, ln, chunk=chunk,
+                                      k_off=ko, v_off=vo, hkv=hk)
+    return got.reshape(b, 1, h, d).float(), want.float(), taken
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_long_lengths(cuda):
+    """Lengths up to 2,559 over P = 160 pages, bf16 at tinyllama's heads:
+    the tensor-core variant within one bf16 rounding step of the plain
+    version.  (Lengths stay below P * chunk: the plain version places the
+    current token at slot lengths[b], which must exist.)"""
+    lengths = [0, 1, 16, 17, 700, 1999, 2048, 2559]
+    got, want, taken = _cuda_paged(cuda, torch.bfloat16, len(lengths), 32, 4,
+                                   64, 16, 256, 160, 5, lengths=lengths)
+    assert taken == "mma"
+    torch.testing.assert_close(got, want, **BF16_ULP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,d,chunk,nb,p,k_off,v_off,row_pad", [
+    (3, 6, 2, 16, 4, 8, 3, 3, 1001, 0),      # odd columns
+    (2, 32, 4, 64, 16, 16, 4, None, None, 4),  # token row of 11268
+])
+def test_cuda_paged_decode_unaligned_rows(cuda, b, h, hk, d, chunk, nb, p,
+                                          k_off, v_off, row_pad):
+    """K/V columns or token rows off 16 bytes take the tensor-core variant
+    with plain loads, within one bf16 rounding step."""
+    got, want, taken = _cuda_paged(cuda, torch.bfloat16, b, h, hk, d, chunk,
+                                   nb, p, b + d, k_off=k_off, v_off=v_off,
+                                   row_pad=row_pad)
+    assert taken == "mma_plain"
+    torch.testing.assert_close(got, want, **BF16_ULP)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_variants_and_graph_replay(cuda):
+    """The serving shape in bf16 (tensor cores) and fp32 (SIMT), and the
+    bf16 call replayed in a CUDA graph after its lengths change on the
+    device (the split is fixed by P * chunk; the positions follow)."""
+    b, h, hk, d, chunk, nb, p = 8, 32, 4, 64, 16, 64, 32
+    got, want, taken = _cuda_paged(cuda, torch.bfloat16, b, h, hk, d, chunk,
+                                   nb, p, 7)
+    assert taken == "mma"
+    torch.testing.assert_close(got, want, **BF16_ULP)
+    got, want, taken = _cuda_paged(cuda, torch.float32, b, h, hk, d, chunk,
+                                   nb, p, 7)
+    assert taken == "simt"
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    arrs, ko, vo = _paged_inputs(b, h, hk, d, chunk, nb, p, 22, 21, 8)
+    q, ck, cv, pool, pr, ln = (torch.from_numpy(a).to(cuda) for a in arrs)
+    q, ck, cv, pool = (x.to(torch.bfloat16) for x in (q, ck, cv, pool))
+    args = (q.reshape(b, hk, h // hk, d), ck.reshape(b, hk, d),
+            cv.reshape(b, hk, d), pool, pr, ln)
+    kw = dict(chunk=chunk, k_off=ko, v_off=vo)
+    DK.paged_decode(*args, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DK.paged_decode(*args, **kw)
+    for lens in ([0] * b, [p * chunk - 1] * b, list(range(1, 8 * b, 8))):
+        ln.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        want = paged_decode_attention_ref(q, ck, cv, pool, pr, ln, **kw,
+                                          hkv=hk)
+        torch.testing.assert_close(out.reshape(b, 1, h, d).float(),
+                                   want.float(), **BF16_ULP)

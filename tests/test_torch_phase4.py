@@ -11,14 +11,14 @@ import torch
 
 import chip_smoke as cs
 from repro_torch.configs import get_arch, reduced
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.runtime import Request
 
 
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """Every eligibility check that sends a CUDA call to K4-K6 and K8 says
-    yes on CPU tensors too."""
+    """Every eligibility check that sends a CUDA call to K4-K8 says yes on
+    CPU tensors too."""
     monkeypatch.setattr(attention, "_flash_kernel_eligible",
                         lambda q, k, window: window == 0)
     monkeypatch.setattr(attention, "_kernel_eligible",
@@ -26,9 +26,11 @@ def kernel_route(monkeypatch):
                         and torch.as_tensor(cur).dim() == 0)
     monkeypatch.setattr(layers, "_rmsnorm_kernel_eligible", lambda x: True)
     monkeypatch.setattr(transformer, "_paged_kernel_eligible", lambda p: True)
+    monkeypatch.setattr(ssm, "_ssd_kernel_eligible", lambda x: True)
 
 
 TINY = reduced(get_arch("tinyllama-1.1b"))
+TINY_ZAMBA2 = reduced(get_arch("zamba2-2.7b"))
 
 
 def test_norm_check_holds_within_twice_the_cpu_distance():
@@ -87,6 +89,18 @@ def test_phase4_lanes_hold_with_the_cpu_in_the_cards_place(kernel_route):
     assert wave["new_ok"] and wave["new_ratio"] == pytest.approx(1.0)
 
 
+def test_zamba2_bf16_lane_holds_with_the_cpu_in_the_cards_place(
+        kernel_route):
+    """zamba2's lanes: the fp32 one held as before, the bf16 one
+    teacher-forced through the K7 route (its plain version here) within
+    the norm check."""
+    z = cs.phase4_wave_card_vs_cpu(
+        "cpu", 0, hold=True, card="cpu", archs=("zamba2-2.7b",),
+        cfgs={"zamba2-2.7b": TINY_ZAMBA2})["zamba2-2.7b"]
+    assert z["old_ok"] and z["new_ok"]
+    assert z["new_ratio"] == pytest.approx(1.0, abs=0.05)
+
+
 @pytest.mark.parametrize("mutant", list(cs.MUTANTS))
 def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
     memo = {}
@@ -97,13 +111,12 @@ def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
             with cs.inject(mutant):
                 bad = cs.phase4_card_vs_cpu("cpu", 1, cfg=TINY, **kw)
         else:
-            wkw = dict(kw, archs=("tinyllama-1.1b",),
-                       cfgs={"tinyllama-1.1b": TINY})
-            clean = cs.phase4_wave_card_vs_cpu(
-                "cpu", 1, **wkw)["tinyllama-1.1b"]
+            arch, cfg = (("tinyllama-1.1b", TINY) if lane == "wave"
+                         else ("zamba2-2.7b", TINY_ZAMBA2))
+            wkw = dict(kw, archs=(arch,), cfgs={arch: cfg})
+            clean = cs.phase4_wave_card_vs_cpu("cpu", 1, **wkw)[arch]
             with cs.inject(mutant):
-                bad = cs.phase4_wave_card_vs_cpu(
-                    "cpu", 1, **wkw)["tinyllama-1.1b"]
+                bad = cs.phase4_wave_card_vs_cpu("cpu", 1, **wkw)[arch]
         assert clean["new_ok"], (lane, clean)
         assert not bad["new_ok"] and bad["new_ratio"] > cs.NORM_FACTOR, \
             (lane, bad)
@@ -111,7 +124,8 @@ def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
 
 def test_phase4_mutants_mode_misses_nothing(kernel_route):
     assert cs.phase4_mutants("cpu", [2], card="cpu",
-                             cfgs={"paged": TINY, "wave": TINY}) == []
+                             cfgs={"paged": TINY, "wave": TINY,
+                                   "zamba2": TINY_ZAMBA2}) == []
 
 
 def test_inject_restores_the_wrapper():

@@ -6,15 +6,21 @@ mode) and ``models.ssm.ssd_chunked`` at ragged lengths, the kernel
 wrapper's shared and per-head B/C, the routing of
 ``models.ssm.ssd_chunked``, and a CUDA lane holding K7 against its plain
 version (skipped where there is no card).  Tolerance: fp32 rtol = atol =
-2e-4 (``tests/test_kernels.py``)."""
+2e-4 (``tests/test_kernels.py``).  The tensor-core variant's arithmetic
+(``ssd_chunk_split_ref``: dt folded into M' and w * B, each split into
+three bf16 parts times bf16 x) is held to the Pallas kernel on the CPU at
+the same tolerance, and the card lane checks that bf16 conv views take
+that variant."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import kernel as SK
 from repro_torch.kernels.ssd_scan import ops as T
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
-                                              ssd_intra_chunk_ref)
+from repro_torch.kernels.ssd_scan.ref import (bf16_parts, ssd_chunk_ref,
+                                              ssd_chunk_split_ref,
+                                              ssd_intra_chunk_ref,
+                                              ssd_intra_chunk_split_ref)
 from repro_torch.models import ssm as TS
 
 try:
@@ -64,6 +70,80 @@ def test_intra_chunk_plain_matches_pallas(g, q, n, p, steep):
     assert bool(torch.isfinite(ty).all() and torch.isfinite(tS).all())
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(tS.numpy(), np.asarray(jS), **TOL)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float()
+
+
+@pytest.mark.parametrize("g,q,n,p,steep", [
+    (3, 64, 16, 16, False), (2, 128, 32, 8, False), (2, 32, 8, 16, True)])
+def test_intra_chunk_split_model_matches_pallas(g, q, n, p, steep):
+    """K7's tensor-core arithmetic on bf16 x, B, C: dt folded into M' and
+    into w * B, three bf16 parts each, against the Pallas kernel fed
+    x * dt -- within the fp32 tolerance, the overflowing decay included."""
+    C, B, x, cum = _folded(g, q, n, p, q + n, steep)
+    C, B, x = _bf16(C), _bf16(B), _bf16(x)
+    rng = np.random.default_rng(q)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+        (g, q, 1)))).astype(np.float32))
+    jy, jS = J_intra(*(jnp.asarray(a.numpy()) for a in (C, B, x * dt)),
+                     jnp.asarray(cum), interpret=True)
+    ty, tS = ssd_intra_chunk_split_ref(C, B, x, dt, _t(cum))
+    assert bool(torch.isfinite(ty).all() and torch.isfinite(tS).all())
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tS.numpy(), np.asarray(jS), **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dt_scale", [
+    (1, 100, 5, 24, 40, 64, 1.0), (2, 70, 3, 16, 16, 32, 30.0)])
+def test_ssd_chunk_split_model_matches_plain(b, s, h, p, n, chunk,
+                                             dt_scale):
+    """On the model's layout (conv views, ragged s, one shared group):
+    three parts hold the fp32 tolerance against the plain version; one
+    part (P rounded once to bf16) would not."""
+    x, dt, A, B, C, _D = (_t(a) for a in _scan_inputs(b, s, h, p, n, s,
+                                                       dt_scale))
+    x, B, C = (t.bfloat16().float() for t in (x, B, C))
+    cum = _cum(dt, A, chunk)
+    want = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    got = ssd_chunk_split_ref(x, dt, cum, B, C, chunk=chunk)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **TOL)
+    assert len(bf16_parts(torch.ones(3), 2)) == 2
+    one = ssd_intra_chunk_split_ref(
+        *(torch.ones((1, 4, 1)),) * 2, torch.ones((1, 4, 1)),
+        torch.full((1, 4, 1), 1 / 3), torch.zeros((1, 4, 1)))
+    # 1/3 needs all three parts: y_3 = 4/3 exactly to fp32 rounding
+    assert abs(float(one[0][0, 3, 0]) - 4 / 3) < 1e-6
+    assert abs(float(bf16_parts(torch.tensor([1 / 3]), 1)[0][0]) * 4
+               - 4 / 3) > 1e-3
+
+
+def test_ssd_variant_and_heads_per_cta():
+    """The wrapper's choice of K7's variant and of the tensor-core
+    variant's heads per CTA (pure functions: no card needed)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    row = 80 * 64 + 2 * 64                # zamba2's conv row (elements)
+    ok = ((row * 3072, row, 64, row * 3072, row, 0), (0, 10240, 10496))
+    assert SK.ssd_variant(bf, bf, 256, 64, 64, *ok) == "mma"
+    assert SK.ssd_variant(bf, bf, 256, 64, 128, *ok) == "mma"
+    assert SK.ssd_variant(f32, f32, 256, 64, 64, *ok) == "simt"
+    assert SK.ssd_variant(bf, f32, 256, 64, 64, *ok) == "simt"
+    assert SK.ssd_variant(bf, bf, 8, 64, 64, *ok) == "simt"       # chunk
+    assert SK.ssd_variant(bf, bf, 256, 128, 64, *ok) == "simt"    # p > 64
+    assert SK.ssd_variant(bf, bf, 256, 20, 64, *ok) == "simt"     # p % 8
+    assert SK.ssd_variant(bf, bf, 256, 64, 256, *ok) == "simt"    # n > 128
+    assert SK.ssd_variant(bf, bf, 256, 64, 64, (row, row, 64, row, 4, 0),
+                          ok[1]) == "simt"                         # stride
+    assert SK.ssd_variant(bf, bf, 256, 64, 64, ok[0],
+                          (0, 10242, 10496)) == "simt"             # pointer
+    # zamba2's prefill: 48 (batch, chunk) pairs of 80 heads, 2 CTAs an SM
+    assert SK.ssd_heads_per_cta(48, 80, 132, 2) == 5
+    for chunks, h, per_sm in ((1, 3, 1), (48, 80, 1), (2, 16, 2),
+                              (300, 7, 2)):
+        k = SK.ssd_heads_per_cta(chunks, h, 132, per_sm)
+        assert 1 <= k <= min(h, SK.MMA_MAX_HEADS)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
@@ -161,6 +241,51 @@ def test_cuda_ssd_chunk_matches_plain(cuda, dtype, b, s, h, p, n, chunk,
     assert bool(torch.isfinite(y).all() and torch.isfinite(S).all())
     torch.testing.assert_close(y, wy, **TOL)
     torch.testing.assert_close(S, wS, **TOL)
+
+
+def _taken(wrapper, before):
+    """The variant of the wrapper's one launch since ``before`` (a copy of
+    its ``variants`` counts)."""
+    (v,) = [k for k, n in wrapper.variants.items() if n != before.get(k, 0)]
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 1000, 80, 64, 64),       # zamba2's widths, ragged
+    (1, 512, 24, 64, 128),       # mamba2's state 128
+])
+def test_cuda_ssd_chunk_tensor_cores(cuda, b, s, h, p, n):
+    """bf16 conv views take the tensor-core variant; it holds the fp32
+    tolerance against the plain version and against its own arithmetic's
+    model, per-head B/C included."""
+    chunk = 256
+    x, dt, A, B, C, _D = _scan_inputs(b, s, h, p, n, s + h)
+    conv = torch.from_numpy(np.concatenate(
+        [x.reshape(b, s, h * p), B, C], -1)).to(cuda, torch.bfloat16)
+    xs = conv[..., :h * p].reshape(b, s, h, p)
+    Bs, Cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dtt = torch.from_numpy(dt).to(cuda)
+    cum = _cum(dtt, torch.from_numpy(A).to(cuda), chunk)
+    before = dict(SK.ssd_chunk.variants)
+    y, S = SK.ssd_chunk(xs, dtt, cum, Bs, Cs, chunk=chunk)
+    assert _taken(SK.ssd_chunk, before) == "mma"
+    for ref in (ssd_chunk_ref, ssd_chunk_split_ref):
+        wy, wS = ref(xs, dtt, cum, Bs, Cs, chunk=chunk)
+        torch.testing.assert_close(y, wy, **TOL)
+        torch.testing.assert_close(S, wS, **TOL)
+    per_head = (Bs[:, :, None].expand(b, s, h, n).contiguous(),
+                Cs[:, :, None].expand(b, s, h, n).contiguous())
+    before = dict(SK.ssd_chunk.variants)
+    y2, S2 = SK.ssd_chunk(xs, dtt, cum, *per_head, chunk=chunk)
+    assert _taken(SK.ssd_chunk, before) == "mma"
+    torch.testing.assert_close(y2, y, rtol=0, atol=0)
+    torch.testing.assert_close(S2, S, rtol=0, atol=0)
+    before = dict(SK.ssd_chunk.variants)
+    y3, S3 = SK.ssd_chunk(xs, dtt, cum, Bs.float(), Cs.float(), chunk=chunk)
+    assert _taken(SK.ssd_chunk, before) == "simt"
+    torch.testing.assert_close(y3, y, **TOL)
+    torch.testing.assert_close(S3, S, **TOL)
 
 
 @pytest.mark.cuda
