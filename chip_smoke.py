@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
      ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (tinyllama-1.1b full width: token row 11264,
-     chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit, K4 within
+     chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit (K1 one
+     device kernel a call, by torch.profiler), K4 within
      the bf16 (3e-2, and one bf16 ulp: its tensor-core variant) and fp32
      (2e-4: its SIMT variant) tolerances; median times (CUDA events):
      each kernel's and library call's device time
@@ -20,16 +21,21 @@ Phases (any failure exits non-zero; nothing is caught):
      tinyllama-1.1b (random bf16 weights from a seeded generator) on the
      card -- 8 requests sharing a 64-token system prompt -- with every
      kernel's launch count set to 0 before and read after (K4's, and on
-     the zamba2 wave path K7's, all on the tensor-core variant); then the
-     path again, warm, timed plain and then under ``torch.profiler`` (device
-     busy/idle share, time by kernel and kind, host time by operator);
+     the zamba2 wave path K7's, all on the tensor-core variant); one warm
+     decode step through ``decode_step_paged`` with the counts set to 0
+     before and read after (K8: 1 plain + 44 add launches) and its device
+     kernels printed; then the path again, warm, timed plain and then
+     under ``torch.profiler`` (device busy/idle share, time by kernel and
+     kind, host time by operator);
      Then the fixed-wave dense-cache path, twice at full width and depth:
      tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
      default metadata-only prefix leases), each with 4 replicas, 4096-slot
      dense caches and 8 requests of 2048-3072 random prompt tokens and 16
      new tokens -- launch counts set to 0 before each run and read after
-     (K5 must launch on both), then each again warm under the profiler
-     (the card's activity only: idle share, device time by kind);
+     (K5 must launch on both), one decode step as on the paged path (K8:
+     tinyllama 1 plain + 44 add, zamba2 54 gate + 19 add), then each again
+     warm under the profiler (the card's activity only: idle share, device
+     time by kind);
   4. the same requests at full width and 2 layers on the card and on the
      CPU (the plain versions, by the caller's explicit device="cpu"), bf16
      weights (norm weights drawn too): a serving run on each device --
@@ -56,9 +62,12 @@ queries at q_offset 64, kv_len 80) against SDPA, K7 (the SSD intra-chunk
 scan) at zamba2's (b 4, 12 chunks of 256, 80 heads, N = P = 64; bf16
 inputs on its tensor-core variant, bound by its bytes or its three-part
 bf16 products at 989 TFLOP/s; fp32 inputs on its SIMT variant, timed
-beside its fp32 bound), K8 (RMSNorm) at the prefill rows (4 x 3072) of
-tinyllama's norms and zamba2's gated norm and at a decode step's 8 rows,
-every (x, w) dtype mix, against ``F.rms_norm``.  K6's bound takes the
+beside its fp32 bound), K8 (RMSNorm) in each of its variants (plain; add:
+the residual add fused in, h equal to the eager add bit for bit; gate:
+Mamba2's rmsnorm(y * silu(z))) at the prefill rows (4 x 3072) of
+tinyllama's norms and zamba2's, and at decode's rows, every (row, w)
+dtype mix, the plain one against ``F.rms_norm`` and the fused ones beside
+the eager chain they replace (``unfused_ms``).  K6's bound takes the
 bf16 tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8
 launch on the paged path and both wave paths and K7 on zamba2's.
 
@@ -71,7 +80,8 @@ line per seed (the retired max ratio and the norm check of each bf16
 lane, the zamba2 lane's ratio); ``--phase4-mutants`` each bf16 lane clean
 and under each wrapper-level off-by-one (K6 q_offset + 1, K4 lengths - 1,
 K5 kv_len - 1, K8's weight rolled, K7's cum shifted by one position on
-the zamba2 lanes), both checks' readings a line, then
+the zamba2 lanes, K8's add variant dropping r, its gate variant reading z
+one column off), both checks' readings a line, then
 which seeds each check fails for each injection (exit 1 if the new check
 misses one the retired check caught).  Phase 1 also counts the HGMMA
 instructions (K6's wgmma) in the library's SASS, and the HMMA
@@ -147,6 +157,21 @@ def graph_ms(fn, iters=20, reps=7):
         for _ in range(iters):
             fn()
     return median_ms(graph.replay, iters=1, reps=reps) / iters
+
+
+def device_kernels(fn):
+    """{name: count} of the device kernels one call of ``fn`` runs, read
+    by ``torch.profiler`` (copies and fills left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))}
 
 
 def timings(kernel, plain, library=None, iters=20, plain_iters=20):
@@ -262,6 +287,12 @@ def phase2_kernels(rows):
         for x, y in zip(got, want):
             assert torch.equal(x, y), "K1 lease_pass differs from plain"
             err = max(err, max_err(x, y))
+    # one launch per call: no fill of the outputs before the kernel
+    per_call = device_kernels(lambda: K.lease_pass(wts, rts, req, masks, pts,
+                                                   64))
+    log(f"K1 lease_pass: device kernels in one call: {per_call}")
+    assert list(per_call.values()) == [1] and "lease_pass" in next(
+        iter(per_call)), f"K1 runs {per_call} a call, not one kernel"
     nbytes = (3 * n + grp * n + grp) * 4 + (n + grp * n + 1 + grp) * 4
     rows.append(dict(
         name="lease_pass", source="src/repro_torch/kernels/tardis_lease/"
@@ -519,8 +550,6 @@ def phase2_prefill_kernels(rows):
     import torch
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm import kernel as RK
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
     F = torch.nn.functional
@@ -683,38 +712,104 @@ def phase2_prefill_kernels(rows):
     del conv32, conv, xs, bs, cs, dt, cum
     torch.cuda.empty_cache()
 
-    # --- K8 rmsnorm ----------------------------------------------------------
-    for name, path, r, d in (("rmsnorm.tinyllama", "tinyllama-1.1b",
-                              4 * 3072, 2048),
-                             ("rmsnorm.zamba2_gated", "zamba2-2.7b", 4 * 3072,
-                              5120),
-                             ("rmsnorm.decode", "paged", 8, 2048)):
-        x32, w32 = randn(r, d), 1 + 0.1 * randn(d)
-        errs = {}
-        for xd in (b16, f32):
-            for wd in (b16, f32):
-                x, w = x32.to(xd), w32.to(wd)
-                got, want = RK.rmsnorm_2d(x, w), rmsnorm_ref(x, w)
-                torch.testing.assert_close(
-                    got.float(), want.float(), **(BF16_ULP if xd == b16
-                                                  else FP32))
-                errs[f"{str(xd)[6:]}/{str(wd)[6:]}"] = max_err(
-                    got.float(), want.float())
-        log(f"K8 {name} max |err|: {errs}")
-        x, w = x32.to(b16), w32.to(b16)
-        add(dict(
-            name=name, wrapper="rmsnorm", path=path,
-            source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm/kernel.py:24",
-            max_abs_err=errs["bfloat16/bfloat16"],
-            shape=f"rows={r} D={d} x/w bf16",
-            **timings(lambda x=x, w=w: RK.rmsnorm_2d(x, w),
-                      lambda x=x, w=w: rmsnorm_ref(x, w),
-                      lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, 1e-5)),
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound(2 * (2 * r * d + d), 4 * r * d)))))
-        del x32, x
+    # --- K8 rmsnorm: the plain norm, the add and gate prologues -------------
+    for name, path, variant, r, d in K8_ROWS:
+        k8_row(add, randn, name, path, variant, r, d)
     torch.cuda.empty_cache()
+
+
+# K8's rows: (name, path, variant, rows, D) -- tinyllama's prefill norms
+# (4 x 3072 rows of 2048), zamba2's gated norm (5120) and its add norms
+# (2560), a paged decode step's 8 rows and a zamba2 decode step's 4
+K8_ROWS = (("rmsnorm.tinyllama", "tinyllama-1.1b", "plain", 4 * 3072, 2048),
+           ("rmsnorm.tinyllama_add", "tinyllama-1.1b", "add", 4 * 3072,
+            2048),
+           ("rmsnorm.zamba2_gated", "zamba2-2.7b", "gate", 4 * 3072, 5120),
+           ("rmsnorm.zamba2_add", "zamba2-2.7b", "add", 4 * 3072, 2560),
+           ("rmsnorm.decode", "paged", "plain", 8, 2048),
+           ("rmsnorm.decode_add", "paged", "add", 8, 2048),
+           ("rmsnorm.zamba2_decode_gated", "zamba2-2.7b", "gate", 4, 5120))
+
+
+def k8_row(add, randn, name, path, variant, r, d):
+    """One K8 variant against its plain version at every (row, w) dtype mix
+    (bf16 within one bf16 rounding step, fp32 within 2e-4; the add's h
+    equal to the eager add bit for bit; the gate's z a column slice of a
+    wider projection row, as the model passes it), then its row: device
+    time, bound, and beside it the time of the eager chain it replaces
+    (``unfused_ms``: the add then the plain norm; the five passes that
+    built the gated norm's input, then the plain norm), all in bf16."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm import ref as RR
+    F = torch.nn.functional
+    f32, b16 = torch.float32, torch.bfloat16
+    x32, r32, w32 = randn(r, d), randn(r, d), 1 + 0.1 * randn(d)
+    proj32 = randn(r, 2 * d + 208)          # [x, z, B, C, dt] as in_proj
+    errs = {}
+
+    def args(xd, wd):
+        w = w32.to(wd)
+        if variant == "gate":
+            z = proj32.to(xd)[:, d:2 * d]
+            return ((x32, w), dict(gate=z),
+                    lambda: RR.gated_rmsnorm_ref(x32, z, w))
+        x = x32.to(xd)
+        if variant == "add":
+            rr = r32.to(xd)
+            return ((x, w), dict(residual=rr),
+                    lambda: RR.add_rmsnorm_ref(x, rr, w))
+        return (x, w), {}, lambda: RR.rmsnorm_ref(x, w)
+
+    for xd in (b16, f32):
+        for wd in (b16, f32):
+            a, kw, plain = args(xd, wd)
+            got, want = RK.rmsnorm_2d(*a, **kw), plain()
+            if variant == "add":
+                assert torch.equal(got[0], a[0] + kw["residual"]), \
+                    f"K8 add: h differs from the eager add ({xd}/{wd})"
+                assert torch.equal(got[0], want[0])
+                got, want = got[1], want[1]
+            torch.testing.assert_close(
+                got.float(), want.float(), **(BF16_ULP if xd == b16 else FP32))
+            errs[f"{str(xd)[6:]}/{str(wd)[6:]}"] = max_err(got.float(),
+                                                          want.float())
+    log(f"K8 {name} ({variant}) max |err|: {errs}")
+    a, kw, plain = args(b16, b16)
+    x, w = a
+    if variant == "plain":
+        library = (lambda: F.rms_norm(x, (d,), w, 1e-5))
+        unfused = None
+        nbytes, nops = 2 * (2 * r * d + d), 4 * r * d
+    elif variant == "add":
+        rr = kw["residual"]
+        library = None
+        unfused = (lambda: RK.rmsnorm_2d(x + rr, w))
+        nbytes, nops = 2 * (4 * r * d + d), 5 * r * d
+    else:
+        z = kw["gate"]
+        library = None
+        unfused = (lambda: RK.rmsnorm_2d(
+            x.to(b16) * F.silu(z.float()).to(b16), w))
+        # silu: an exponential, an add and a divide; the three roundings,
+        # the product, then the norm's four
+        nbytes, nops = 8 * r * d + 2 * d, 12 * r * d
+    big = r * d > 1 << 20
+    row = dict(
+        name=name, wrapper="rmsnorm", path=path, variant=variant,
+        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:24",
+        max_abs_err=errs["bfloat16/bfloat16"],
+        shape=f"rows={r} D={d} " + ("y fp32, z/w bf16 (z a column view)"
+                                     if variant == "gate" else "x/w bf16"),
+        **timings(lambda: RK.rmsnorm_2d(*a, **kw), plain, library,
+                  plain_iters=5 if big else 20),
+        unfused_ms=None if unfused is None else graph_ms(unfused),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops))))
+    add(row)
+    if unfused is not None:
+        log(f"  {name}: the eager chain it replaces "
+            f"{row['unfused_ms'] * 1e3:.2f} us (graph replay)")
 
 
 def _requests(Request, np, vocab, n=8, seed=SEED):
@@ -812,6 +907,84 @@ def profile_path(label, serve, smi, top=12, with_host=True):
             f"{e.count:6d}x  {e.key[:90]}")
 
 
+def norms_per_step(cfg):
+    """K8's launches by variant in one decode step of the port's layer
+    loops: a dense model's first attention norm plain, every later norm
+    (the final one too) taking the residual add of the sublayer before it;
+    each Mamba2 block its gated norm, the shared block's norms and the
+    final one the add."""
+    if cfg.family == "hybrid":
+        return {"gate": cfg.n_layers,
+                "add": 2 * (cfg.n_layers // cfg.attn_every) + 1}
+    return {"plain": 1, "add": 2 * cfg.n_layers}
+
+
+def decode_step_launches(cfg, params, path):
+    """One warm decode step at the config's width through the entry point
+    of ``path``: "paged" (``decode_step_paged``, 8 requests on 4 pool pages
+    each) or "wave" (``decode_step``, a wave of 4 in 64-slot dense caches).
+    The launch counts are set to 0 just before the step and read just
+    after; then the step runs once more under ``torch.profiler``, then 3 x
+    5 times between CUDA events (the card idles most of a step: the time
+    is the host's).  Returns (launch counts, K8's launches by variant --
+    None where the wrapper does not count them --, the step's device
+    kernels {name: count}, the median ms a step)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_2d
+    from repro_torch.kernels.tardis_lease.kernel import LANES
+    from repro_torch.models import (decode_step, decode_step_paged,
+                                    init_cache, pool_layout)
+    dev = "cuda"
+    dtype = params["embed"].dtype
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b = 8 if path == "paged" else 4
+    toks = torch.randint(1, cfg.vocab, (b, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    if path == "paged":
+        chunk, pages = 16, 4
+        (spec,) = pool_layout(cfg)
+        row = -(-(spec.offset + spec.token_elems) // LANES) * LANES
+        pool = torch.randn((b * pages * chunk, row), generator=g,
+                           device=dev).to(dtype)
+        page_rows = torch.arange(b * pages, dtype=torch.int32,
+                                 device=dev).reshape(b, pages)
+        lengths = torch.full((b,), 40, dtype=torch.int32, device=dev)
+
+        def step():
+            decode_step_paged(cfg, params, pool, page_rows, lengths, toks,
+                              chunk=chunk)
+    else:
+        cache = init_cache(cfg, b, 64, dtype, dev)
+        cur = torch.tensor(40, dtype=torch.int32, device=dev)
+
+        def step():
+            decode_step(cfg, params, cache, toks, cur)
+    step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    norms = (dict(rmsnorm_2d.variants) if hasattr(rmsnorm_2d, "variants")
+             else None)
+    return counts, norms, device_kernels(step), median_ms(step, 5, 3)
+
+
+def _hold_step(label, cfg, params, path):
+    """``decode_step_launches`` on the card, printed, K8's launches by
+    variant held to ``norms_per_step``."""
+    counts, norms, kernels, ms = decode_step_launches(cfg, params, path)
+    n_dev = sum(kernels.values())
+    log(f"one decode step ({label}): {ms:.3f} ms warm, {n_dev} device "
+        f"kernels; K8 by variant "
+        f"{norms}; port launches {counts}")
+    assert norms == norms_per_step(cfg), \
+        f"{label}: K8 launches by variant in a decode step {norms}, want " \
+        f"{norms_per_step(cfg)}"
+    return n_dev
+
+
 def phase3_main_path(smi):
     import numpy as np
     import torch
@@ -845,10 +1018,11 @@ def phase3_main_path(smi):
     assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
         f"K4 launches by variant: {variants['paged_decode']}"
     del cluster
+    _hold_step("paged path, tinyllama-1.1b", cfg, params, "paged")
     profile_main_path(cfg, params, smi)
     del params
     torch.cuda.empty_cache()
-    return counts, n_tok / dt
+    return counts, variants, n_tok / dt
 
 
 # The fixed-wave dense-cache path: (arch, ServingCluster kwargs)
@@ -888,8 +1062,9 @@ def _serve_waves(cfg, params, dev, cache_len, reqs_kw, trace=False, **kw):
 
 def phase3_wave_paths(smi):
     """The fixed-wave path at full width and depth, once per configuration
-    with the launch counts set to 0 just before and read just after, then
-    warm and profiled.  Returns {arch: launch counts}."""
+    with the launch counts set to 0 just before and read just after, one
+    decode step's launches (``_hold_step``), then warm and profiled.
+    Returns {arch: (launch counts, launches by variant)}."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -933,9 +1108,10 @@ def phase3_wave_paths(smi):
             f"K7 launches by variant: {variants['ssd_chunk']}"
         del cluster
         torch.cuda.empty_cache()
+        _hold_step(f"wave path, {arch}", cfg, params, "wave")
         # the run above already timed the path without the profiler
         profile_path(f"{arch} wave path", serve, smi, with_host=False)
-        out[arch] = counts
+        out[arch] = counts, variants
         del params
         torch.cuda.empty_cache()
     return out
@@ -956,7 +1132,9 @@ MUTANTS = {"K6 q_offset+1": ("paged", "wave"),
            "K4 lengths-1": ("paged",),
            "K5 kv_len-1": ("wave",),
            "K8 weight rolled": ("paged", "wave"),
-           "K7 cum shifted": ("zamba2",)}
+           "K7 cum shifted": ("zamba2",),
+           "K8 add drops r": ("paged", "wave", "zamba2"),
+           "K8 gate z one column off": ("zamba2",)}
 
 
 def _hold_logits(label, pre_c, tok_g, tok_c, step_g, step_c, hold=True):
@@ -1379,7 +1557,9 @@ def inject(name):
     edited) -- K6 called with q_offset + 1, K4 with lengths - 1, K5 with
     kv_len - 1, K8 with its weight rolled by one column, K7 with the
     within-chunk cumulative decay shifted one position later (cum'_i =
-    cum_{i-1}, cum'_0 = cum_0)."""
+    cum_{i-1}, cum'_0 = cum_0), K8's add variant with r = 0 (h = x: the
+    sublayer's output dropped), K8's gate variant reading z one column
+    further along its projection row."""
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1404,11 +1584,29 @@ def inject(name):
         return lambda x, dt, cum, B, C, **kw: fn(x, dt, torch.cat(
             [cum[:, :, :1], cum[:, :, :-1]], 2), B, C, **kw)
 
+    def k8_operand(key, change):
+        def wrap(fn):
+            def call(x, w, **kw):
+                if kw.get(key) is not None:
+                    kw = {**kw, key: change(kw[key])}
+                return fn(x, w, **kw)
+            return call
+        return wrap
+
+    def one_column_on(z):
+        return torch.as_strided(z, z.shape, z.stride(),
+                                z.storage_offset() + 1)
+
     mod, attr, wrap = {"K6 q_offset+1": (fops, "flash_prefill", k6),
                        "K4 lengths-1": (dops, "paged_decode", k4),
                        "K5 kv_len-1": (dops, "dense_decode", k5),
                        "K8 weight rolled": (nops, "rmsnorm_2d", k8),
-                       "K7 cum shifted": (sops, "ssd_chunk", k7)}[name]
+                       "K7 cum shifted": (sops, "ssd_chunk", k7),
+                       "K8 add drops r": (nops, "rmsnorm_2d", k8_operand(
+                           "residual", torch.zeros_like)),
+                       "K8 gate z one column off": (
+                           nops, "rmsnorm_2d", k8_operand(
+                               "gate", one_column_on))}[name]
     orig = getattr(mod, attr)
     setattr(mod, attr, wrap(orig))
     try:
@@ -1499,7 +1697,7 @@ def main() -> int:
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
     stamp("phase 2")
-    counts, _tps = phase3_main_path(smi)
+    counts, variants, _tps = phase3_main_path(smi)
     stamp("phase 3 (paged path)")
     wave_counts = phase3_wave_paths(smi)
     stamp("phase 3 (wave paths)")
@@ -1509,14 +1707,18 @@ def main() -> int:
     stamp("phase 4 (wave paths)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "launch_ms", "shape", "variant")
+            "library_ms", "call_ms", "launch_ms", "shape", "variant",
+            "unfused_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
-    # main path)
-    path_counts = {"paged": counts, **wave_counts}
+    # main path); K8's rows count their variant's
+    path_counts = {"paged": (counts, variants), **wave_counts}
     for r in rows:
-        r["launches"] = path_counts[r.get("path", "paged")][
-            r.get("wrapper", r["name"])]
+        c, v = path_counts[r.get("path", "paged")]
+        wrapper = r.get("wrapper", r["name"])
+        r["launches"] = (v[wrapper].get(r["variant"], 0)
+                         if wrapper == "rmsnorm" else c[wrapper])
         r.setdefault("variant", None)
+        r.setdefault("unfused_ms", None)
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

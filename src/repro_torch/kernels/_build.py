@@ -114,8 +114,8 @@ SIGNATURES = {
     "tardis_ssd_chunk": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
                          + [_VP] * 3 + [_I64] * 3 + [_I32] * 9
                          + [_VP] * 3),
-    "tardis_rmsnorm": ([_VP] * 3 + [_I32] * 2 + [_I64] * 2
-                       + [_F32, _I32, _I32, _I32, _VP]),
+    "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
+                        _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
 }
 
 

@@ -14,6 +14,7 @@ from .._build import launch, ptr
 from . import ref
 
 LANES = 128
+MAX_GROUPS = 64      # K1: the groups a CTA reduces in shared memory
 
 
 def _check_i32(name, t, shape=None, device=None):
@@ -30,7 +31,8 @@ def _check_i32(name, t, shape=None, device=None):
 def lease_pass(wts, rts, req, masks, pts_vec, lease):
     """K1.  wts/rts/req (N,) int32; masks (G, N) int32; pts_vec (G,) int32;
     lease an int (static policy) or an (N,) int32 tensor (predictor).
-    Returns (new_rts (N,), flags (G, N), write_ts (), new_pts (G,))."""
+    Returns (new_rts (N,), flags (G, N), write_ts (), new_pts (G,)): on
+    CUDA tensors ONE launch (one thread-block cluster), G <= MAX_GROUPS."""
     n = wts.shape[0]
     g = masks.shape[0]
     dev = wts.device
@@ -42,10 +44,13 @@ def lease_pass(wts, rts, req, masks, pts_vec, lease):
         _check_i32("lease", lease, (n,), dev)
     if dev.type != "cuda":
         return ref.lease_pass_ref(wts, rts, req, masks, pts_vec, lease)
+    if g > MAX_GROUPS:
+        raise ValueError(f"the lease kernel holds at most {MAX_GROUPS} "
+                         f"groups in shared memory, not {g}")
     new_rts = torch.empty_like(wts)
     flags = torch.empty_like(masks)
-    write_ts = torch.zeros((), dtype=torch.int32, device=dev)
-    new_pts = torch.clamp_min(pts_vec, 0)          # atomicMax identities
+    write_ts = torch.empty((), dtype=torch.int32, device=dev)
+    new_pts = torch.empty_like(pts_vec)
     vec = lease if isinstance(lease, torch.Tensor) else None
     launch("tardis_lease_pass", ptr(wts), ptr(rts), ptr(req), ptr(masks),
            ptr(pts_vec), ptr(vec), 0 if vec is not None else int(lease),

@@ -11,6 +11,7 @@ does, so ops outputs must be bit-identical int32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...core import protocol as P
 
@@ -34,9 +35,11 @@ def lease_pass_ref(wts, rts, req, masks, pts_vec, lease):
     flags = ((m & (req == wts)).to(torch.int32)
              | ((m & (pts > rts)).to(torch.int32) << 1))
     union = m.any(dim=0)
-    write_ts = torch.where(union, rts, torch.full_like(rts, -1)).amax()
-    write_ts = (torch.clamp_min(write_ts, -1) + 1).to(torch.int32)
-    consumed = torch.where(m & (pts <= rts), wts, torch.zeros_like(wts))
+    # each max over the entries starts from its identity (-1, 0), which
+    # also gives the answer for an empty table
+    write_ts = F.pad(torch.where(union, rts, -1), (0, 1), value=-1).amax()
+    write_ts = (write_ts + 1).to(torch.int32)
+    consumed = F.pad(torch.where(m & (pts <= rts), wts, 0), (0, 1), value=0)
     new_pts = torch.maximum(pts_vec.to(torch.int32),
                             consumed.amax(dim=1).clamp_min(0))
     return new_rts.to(torch.int32), flags, write_ts, new_pts.to(torch.int32)

@@ -10,6 +10,12 @@ Caches keep the JAX layout, stacked on a leading layer axis:
 (the JAX version rebuilt the stacked caches every step: a whole-cache copy
 per token in eager PyTorch); only the small conv buffer is rebuilt, so its
 dtype follows the JAX promotion of buffer and new input.
+
+Every layer loop carries the residual stream ``x`` and the last
+sublayer's output ``r`` not yet added to it: the next norm adds it in the
+same call (``residual_norm``; K8's add variant on the card), and only a
+Mamba2 block, which has no norm before its input projection, reads the
+sum materialised (``settle``).
 """
 from __future__ import annotations
 
@@ -19,11 +25,11 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.tardis_lease.kernel import scatter_rows
-from .layers import rmsnorm
 from .ssm import ssm_block
 from .transformer import (PORTED_FAMILIES, Params, _embed, _mlp_after,
                           attn_decode, attn_decode_paged, attn_prefill,
-                          attn_prefill_cached, logits_fn)
+                          attn_prefill_cached, logits_fn, residual_norm,
+                          settle)
 
 Cache = Dict[str, Any]
 
@@ -89,18 +95,19 @@ def init_cache(cfg: ArchConfig, b: int, t: int, dtype=torch.bfloat16,
     raise NotImplementedError(f"family {fam!r} is not ported yet")
 
 
-def _ssm_layers_decode(cfg, layers, x, cache, lo: int, convs: List):
-    """Decode through Mamba2 blocks ``layers`` (cache rows lo, lo+1, ...):
-    the fp32 state updates in place, each new conv tail goes to
-    ``convs``."""
+def _ssm_layers_decode(cfg, layers, x, r, cache, lo: int, convs: List):
+    """Decode through Mamba2 blocks ``layers`` (cache rows lo, lo+1, ...)
+    over the residual stream x + r: the fp32 state updates in place, each
+    new conv tail goes to ``convs``.  Returns (x, the last block's output,
+    pending)."""
     for i, layer in enumerate(layers):
+        x = settle(x, r)
         state = cache["state"][lo + i]
-        y, (s2, c2) = ssm_block(layer["ssm"], cfg, x,
+        r, (s2, c2) = ssm_block(layer["ssm"], cfg, x,
                                 decode_state=(state, cache["conv"][lo + i]))
         state.copy_(s2)
         convs.append(c2)
-        x = x + y
-    return x
+    return x, r
 
 
 def decode_step(cfg: ArchConfig, p: Params, cache: Cache, tokens,
@@ -115,27 +122,30 @@ def decode_step(cfg: ArchConfig, p: Params, cache: Cache, tokens,
     if fam not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {fam!r} is not ported yet")
     x = p["embed"][tokens.long()]
+    r = None
     new_cache = dict(cache)
     if fam in ("dense", "vlm"):
         for li, layer in enumerate(p["layers"]):
-            y, _kc, _vc = attn_decode(layer["attn"], cfg, x, cache["k"][li],
-                                      cache["v"][li], cur_idx)
-            x = _mlp_after(cfg, layer, x + y)
+            x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+            y, _kc, _vc = attn_decode(layer["attn"], cfg, xn,
+                                      cache["k"][li], cache["v"][li], cur_idx)
+            x, r = _mlp_after(cfg, layer, x, y)
     elif fam == "ssm":
         convs: List = []
-        x = _ssm_layers_decode(cfg, p["layers"], x, cache, 0, convs)
+        x, r = _ssm_layers_decode(cfg, p["layers"], x, r, cache, 0, convs)
         new_cache["conv"] = torch.stack(convs)
     else:                                           # hybrid
         convs = []
         shared = p["shared"]
         for a, group in enumerate(p["groups"]):
-            x = _ssm_layers_decode(cfg, group, x, cache, a * cfg.attn_every,
-                                   convs)
-            y, _kc, _vc = attn_decode(shared["attn"], cfg, x, cache["ak"][a],
-                                      cache["av"][a], cur_idx)
-            x = _mlp_after(cfg, shared, x + y)
+            x, r = _ssm_layers_decode(cfg, group, x, r, cache,
+                                      a * cfg.attn_every, convs)
+            x, xn = residual_norm(x, r, shared["attn"]["norm"], cfg.norm_eps)
+            y, _kc, _vc = attn_decode(shared["attn"], cfg, xn,
+                                      cache["ak"][a], cache["av"][a], cur_idx)
+            x, r = _mlp_after(cfg, shared, x, y)
         new_cache["conv"] = torch.stack(convs)
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
     return new_cache, logits_fn(cfg, p, x)
 
 
@@ -162,14 +172,16 @@ def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
     page_rows = page_rows.to(torch.int32)
     row_buf = torch.zeros((b, pool_rows.shape[1]), dtype=pool_rows.dtype,
                           device=pool_rows.device)
+    r = None
     for spec in pool_layout(cfg):
         for li in range(spec.n_layers):
             layer = p[spec.params_key][li]
+            x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
             y, kd, vd = attn_decode_paged(
-                layer["attn"], cfg, x, pool_rows, page_rows, lengths,
+                layer["attn"], cfg, xn, pool_rows, page_rows, lengths,
                 li * hkd, (spec.n_layers + li) * hkd, pool_off=spec.offset,
                 chunk=chunk)
-            x = _mlp_after(cfg, layer, x + y)
+            x, r = _mlp_after(cfg, layer, x, y)
             k_off = spec.offset + li * hkd
             v_off = spec.offset + (spec.n_layers + li) * hkd
             row_buf[:, k_off:k_off + hkd] = kd.reshape(b, hkd)
@@ -179,7 +191,7 @@ def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
     flat_idx = (page_rows[ar, (lengths // chunk).long()] * chunk
                 + lengths % chunk).to(torch.int32)
     scatter_rows(pool_rows, flat_idx, row_buf)
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
     return pool_rows, logits_fn(cfg, p, x)
 
 
@@ -211,31 +223,34 @@ def prefill(cfg: ArchConfig, p: Params, batch, cache_len: int,
                              device=x.device).expand(b, s)
     cache = init_cache(cfg, b, cache_len, dtype, x.device)
 
-    def attn_layer(layer, x, kcache, vcache):
-        y, (kc, vc) = attn_prefill(layer["attn"], cfg, x, positions,
+    def attn_layer(layer, x, r, kcache, vcache):
+        x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+        y, (kc, vc) = attn_prefill(layer["attn"], cfg, xn, positions,
                                    cache_len)
         kcache.copy_(kc)
         vcache.copy_(vc)
-        return _mlp_after(cfg, layer, x + y)
+        return _mlp_after(cfg, layer, x, y)
 
-    def ssm_layers(layers, x, lo):
+    def ssm_layers(layers, x, r, lo):
         for i, layer in enumerate(layers):
-            y, (st, cv) = ssm_block(layer["ssm"], cfg, x)
+            x = settle(x, r)
+            r, (st, cv) = ssm_block(layer["ssm"], cfg, x)
             cache["state"][lo + i].copy_(st)
             cache["conv"][lo + i].copy_(cv)
-            x = x + y
-        return x
+        return x, r
 
+    r = None
     if fam in ("dense", "vlm"):
         for li, layer in enumerate(p["layers"]):
-            x = attn_layer(layer, x, cache["k"][li], cache["v"][li])
+            x, r = attn_layer(layer, x, r, cache["k"][li], cache["v"][li])
     elif fam == "ssm":
-        x = ssm_layers(p["layers"], x, 0)
+        x, r = ssm_layers(p["layers"], x, r, 0)
     else:                                           # hybrid
         for a, group in enumerate(p["groups"]):
-            x = ssm_layers(group, x, a * cfg.attn_every)
-            x = attn_layer(p["shared"], x, cache["ak"][a], cache["av"][a])
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+            x, r = ssm_layers(group, x, r, a * cfg.attn_every)
+            x, r = attn_layer(p["shared"], x, r, cache["ak"][a],
+                              cache["av"][a])
+    x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
     return cache, _last_logits(cfg, p, x, last_idx)
 
 
@@ -254,16 +269,18 @@ def prefill_suffix(cfg: ArchConfig, p: Params, batch, cache: Cache,
     positions = (prefix_len + torch.arange(
         s, dtype=torch.int32, device=x.device)).expand(b, s)
     out: Cache = {}
+    r = None
     for spec in pool_layout(cfg):
         ck, cv = spec.cache_keys
         ks, vs = [], []
         for li, layer in enumerate(p[spec.params_key]):
-            y, kc, vc = attn_prefill_cached(layer["attn"], cfg, x, positions,
-                                            cache[ck][li], cache[cv][li],
-                                            prefix_len)
-            x = _mlp_after(cfg, layer, x + y)
+            x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+            y, kc, vc = attn_prefill_cached(layer["attn"], cfg, xn,
+                                            positions, cache[ck][li],
+                                            cache[cv][li], prefix_len)
+            x, r = _mlp_after(cfg, layer, x, y)
             ks.append(kc)
             vs.append(vc)
         out[ck], out[cv] = torch.stack(ks), torch.stack(vs)
-    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
     return out, _last_logits(cfg, p, x, last_idx)

@@ -12,7 +12,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rmsnorm.ref import rmsnorm_ref
+from ..kernels.rmsnorm.ref import (add_rmsnorm_ref, gated_rmsnorm_ref,
+                                   rmsnorm_ref)
 
 
 def _rmsnorm_kernel_eligible(x) -> bool:
@@ -27,6 +28,27 @@ def rmsnorm(x, w, eps: float = 1e-5):
         from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
         return rmsnorm_kernel(x, w, eps)
     return rmsnorm_ref(x, w, eps)
+
+
+def add_rmsnorm(x, r, w, eps: float = 1e-5):
+    """The residual add and the norm after it: (h, rmsnorm(h)) with
+    h = x + r.  CUDA tensors go to K8's add variant (one launch writes h
+    and the norm), CPU tensors take the eager add and the plain norm."""
+    if _rmsnorm_kernel_eligible(x):
+        from ..kernels.rmsnorm.ops import add_rmsnorm as kernel
+        return kernel(x, r, w, eps)
+    return add_rmsnorm_ref(x, r, w, eps)
+
+
+def gated_rmsnorm(y, z, w, eps: float = 1e-5):
+    """Mamba2's gated norm, rmsnorm(y * silu(z)) in z's dtype (y the
+    scan's fp32 output, each factor rounded to z's dtype as the JAX
+    package rounds them).  CUDA tensors go to K8's gate variant, CPU
+    tensors take the eager passes and the plain norm."""
+    if _rmsnorm_kernel_eligible(y):
+        from ..kernels.rmsnorm.ops import gated_rmsnorm as kernel
+        return kernel(y, z, w, eps)
+    return gated_rmsnorm_ref(y, z, w, eps)
 
 
 def dense_init(generator: torch.Generator, shape, dtype,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, rmsnorm
+from .layers import dense_init, gated_rmsnorm
 
 
 def ssm_init(generator: torch.Generator, cfg, dtype):
@@ -189,6 +189,7 @@ def ssm_block(p, cfg, x, *, decode_state=None):
         y = y1[:, None]
     new_state = (final, conv_tail)
 
-    y = y.reshape(b, s, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["norm_w"], cfg.norm_eps)
+    # z comes in x's dtype (in_proj's output), where the gated norm
+    # rounds y and silu(z)
+    y = gated_rmsnorm(y.reshape(b, s, di), z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], new_state

@@ -23,7 +23,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from .attention import attend, decode_attention
-from .layers import apply_rope, dense_init, rmsnorm, swiglu, swiglu_init
+from .layers import (add_rmsnorm, apply_rope, dense_init, rmsnorm, swiglu,
+                     swiglu_init)
 from .ssm import ssm_block, ssm_init
 
 Params = Dict[str, Any]
@@ -35,6 +36,12 @@ PORTED_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
 
 # ---------------------------------------------------------------------------
 # Attention block (params + apply), GQA + RoPE
+#
+# Each attention function takes ``xn``, its input after the pre-norm
+# (``p["norm"]``), which the layer body computes with
+# :func:`residual_norm`: the residual add that precedes a norm runs fused
+# into it (K8's add variant on the card), so a sublayer's output stays
+# pending until the next norm adds it.
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, cfg: ArchConfig, dtype):
@@ -58,37 +65,34 @@ def _qkv(p, cfg: ArchConfig, x):
     return q, k, v
 
 
-def attn_apply(p, cfg: ArchConfig, x, positions, *, causal=True):
+def attn_apply(p, cfg: ArchConfig, xn, positions, *, causal=True):
     """Self-attention over a full sequence (train / prefill)."""
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, xn)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
-    b, s, _ = x.shape
+    b, s, _ = xn.shape
     return out.reshape(b, s, -1) @ p["wo"]
 
 
-def attn_prefill(p, cfg, x, positions, cache_len: int):
+def attn_prefill(p, cfg, xn, positions, cache_len: int):
     """Prefill that also returns the KV cache, zero-padded to cache_len."""
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, xn)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     out = attend(q, k, v, causal=True, window=cfg.sliding_window)
-    b, s, _ = x.shape
+    b, s, _ = xn.shape
     pad = cache_len - s
     kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     return out.reshape(b, s, -1) @ p["wo"], (kc, vc)
 
 
-def attn_prefill_cached(p, cfg, x, positions, kc, vc, prefix_len: int):
+def attn_prefill_cached(p, cfg, xn, positions, kc, vc, prefix_len: int):
     """Chunked prefill against a cache whose first ``prefix_len`` slots
     hold leased prefix KV; returns (y, kc, vc) with the suffix KV written
     (in the cache dtype) at [prefix_len, prefix_len + s)."""
-    b, s, _ = x.shape
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    b, s, _ = xn.shape
     q, k, v = _qkv(p, cfg, xn)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
@@ -101,7 +105,7 @@ def attn_prefill_cached(p, cfg, x, positions, kc, vc, prefix_len: int):
     return out.reshape(b, s, -1) @ p["wo"], kc, vc
 
 
-def attn_decode(p, cfg, x, kc, vc, cur_idx):
+def attn_decode(p, cfg, xn, kc, vc, cur_idx):
     """One-token decode: insert k/v at ``cur_idx``, attend over the cache.
 
     ``cur_idx`` is a scalar (a wave decoding in lockstep; an int or a 0-d
@@ -111,10 +115,9 @@ def attn_decode(p, cfg, x, kc, vc, cur_idx):
     clamped into the cache as ``dynamic_update_slice`` clamps it.  Returns
     (y, kc, vc).
     """
-    b = x.shape[0]
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    b = xn.shape[0]
     q, k, v = _qkv(p, cfg, xn)
-    cur = torch.as_tensor(cur_idx, dtype=torch.int32, device=x.device)
+    cur = torch.as_tensor(cur_idx, dtype=torch.int32, device=xn.device)
     pos = cur.expand(b, 1) if cur.dim() == 0 else cur[:, None]
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope)
@@ -123,7 +126,7 @@ def attn_decode(p, cfg, x, kc, vc, cur_idx):
         kc.index_copy_(1, slot, k.to(kc.dtype))
         vc.index_copy_(1, slot, v.to(vc.dtype))
     else:
-        ar = torch.arange(b, device=x.device)
+        ar = torch.arange(b, device=xn.device)
         kc[ar, cur.long()] = k[:, 0].to(kc.dtype)
         vc[ar, cur.long()] = v[:, 0].to(vc.dtype)
     out = decode_attention(q, kc, vc, cur + 1)
@@ -134,7 +137,7 @@ def _paged_kernel_eligible(pool_rows) -> bool:
     return pool_rows.is_cuda
 
 
-def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
+def attn_decode_paged(p, cfg, xn, pool_rows, page_rows, lengths, k_off: int,
                       v_off: int, *, pool_off: int = 0, chunk: int):
     """One-token decode where the KV cache lives in LeaseEngine pool pages.
 
@@ -145,8 +148,7 @@ def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
     the current token, attend with the reference).  Returns (y, k_cur,
     v_cur): the fresh RoPE'd KV in the pool dtype.
     """
-    b = x.shape[0]
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    b = xn.shape[0]
     q, k, v = _qkv(p, cfg, xn)
     pos = lengths.to(torch.int32)[:, None]
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
@@ -161,12 +163,12 @@ def attn_decode_paged(p, cfg, x, pool_rows, page_rows, lengths, k_off: int,
     else:
         t = page_rows.shape[1] * chunk
         rows_idx = (page_rows.long()[:, :, None] * chunk
-                    + torch.arange(chunk, device=x.device)).reshape(b, t)
+                    + torch.arange(chunk, device=xn.device)).reshape(b, t)
         gathered = pool_rows[rows_idx]                # (B, T, token_row)
         lo_k, lo_v = pool_off + k_off, pool_off + v_off
         kc = gathered[..., lo_k:lo_k + hk * dh].reshape(b, t, hk, dh)
         vc = gathered[..., lo_v:lo_v + hk * dh].reshape(b, t, hk, dh)
-        slot = torch.arange(t, device=x.device)[None, :] == pos
+        slot = torch.arange(t, device=xn.device)[None, :] == pos
         kc = torch.where(slot[..., None, None], kd, kc)
         vc = torch.where(slot[..., None, None], vd, vc)
         out = decode_attention(q, kc, vc, pos[:, 0] + 1)
@@ -248,29 +250,55 @@ def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    r = None         # the last sublayer's output, not yet added to x
     if cfg.family in DENSE_FAMILIES:
         for layer in p["layers"]:
-            x = _dense_layer_fwd(cfg, layer, x, positions)
+            x, r = _dense_layer_fwd(cfg, layer, x, r, positions)
     elif cfg.family == "ssm":
         for layer in p["layers"]:
-            x = x + ssm_block(layer["ssm"], cfg, x)[0]
+            x = settle(x, r)
+            r = ssm_block(layer["ssm"], cfg, x)[0]
     else:                                           # hybrid
         for group in p["groups"]:
             for layer in group:
-                x = x + ssm_block(layer["ssm"], cfg, x)[0]
-            x = _dense_layer_fwd(cfg, p["shared"], x, positions)
-    return rmsnorm(x, p["final_norm"], cfg.norm_eps)
+                x = settle(x, r)
+                r = ssm_block(layer["ssm"], cfg, x)[0]
+            x, r = _dense_layer_fwd(cfg, p["shared"], x, r, positions)
+    return residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
 
 
-def _dense_layer_fwd(cfg, layer, x, positions):
-    return _mlp_after(cfg, layer, x + attn_apply(layer["attn"], cfg, x,
-                                                  positions))
+def settle(x, r):
+    """The residual stream with the pending output ``r`` added (``None``:
+    nothing pending): what a block with no norm before it reads (Mamba2's
+    in_proj)."""
+    return x if r is None else x + r
 
 
-def _mlp_after(cfg, layer, x):
-    """The layer body after attention: x + swiglu(rmsnorm(x))."""
-    xn = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(layer["mlp"], xn)
+def residual_norm(x, r, w, eps: float):
+    """The norm at the head of a sublayer, over the residual stream ``x``
+    plus the output ``r`` the sublayer before left pending (``None``:
+    nothing pending).  Returns (h, rmsnorm(h)) with h = x + r: on the card
+    K8's add variant writes both in one launch, where the eager add was a
+    launch of its own."""
+    if r is None:
+        return x, rmsnorm(x, w, eps)
+    return add_rmsnorm(x, r, w, eps)
+
+
+def _dense_layer_fwd(cfg, layer, x, r, positions):
+    """One dense layer over the residual stream x + r; returns the stream
+    and the MLP's output, pending."""
+    x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+    return _mlp_after(cfg, layer, x, attn_apply(layer["attn"], cfg, xn,
+                                                positions))
+
+
+def _mlp_after(cfg, layer, x, y):
+    """The layer body after attention: h = x + y (y the attention output)
+    and its norm in one call, then the MLP.  Returns (h, swiglu(rmsnorm(h)))
+    -- the MLP's output pending, for the next norm to add."""
+    h, xn = add_rmsnorm(x, y, layer["mlp_norm"], cfg.norm_eps)
+    return h, swiglu(layer["mlp"], xn)
 
 
 def logits_fn(cfg, p, hidden):

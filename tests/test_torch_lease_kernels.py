@@ -192,6 +192,50 @@ def test_cuda_lease_pass_matches_plain(cuda, n, groups, per_block):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 5, 1025, 4608, 9000])
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("per_block", [False, True])
+def test_cuda_lease_pass_one_cluster_matches_plain(cuda, n, groups,
+                                                  per_block):
+    """K1 as one cluster launch, no output pre-filled: bit for bit at N
+    empty, short of one CTA, past a multiple of the 1024-entry CTA, at the
+    serving table and past the 8 CTAs' one round; G = 1-8; the static
+    lease and the predictor's lease vector.  The outputs start as garbage
+    (a poisoned cache allocation) so a value the kernel never writes
+    shows."""
+    rng, wts, rts, req, lvec = _tables(n, 31 * n + groups)
+    masks = rng.integers(0, 2, (groups, n)).astype(np.int32)
+    pts = rng.integers(0, 120, groups).astype(np.int32)
+    pts[0] = -3                           # new_pts clamps at 0
+    args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, req, masks, pts)]
+    lease = torch.from_numpy(lvec).to(cuda) if per_block else 10
+    torch.full((1 << 16,), -7, dtype=torch.int32, device=cuda)  # poison
+    n0 = K.lease_pass.launches
+    got = K.lease_pass(*args, lease)
+    assert K.lease_pass.launches == n0 + 1
+    for g, w in zip(got, R.lease_pass_ref(*args, lease)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_lease_pass_holds_at_most_64_groups(cuda):
+    rng, wts, rts, req, _l = _tables(300, 3)
+    args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, req)]
+    for groups in (64, 65):
+        masks = torch.from_numpy(rng.integers(0, 2, (groups, 300)).astype(
+            np.int32)).to(cuda)
+        pts = torch.from_numpy(rng.integers(0, 120, groups).astype(
+            np.int32)).to(cuda)
+        if groups > K.MAX_GROUPS:
+            with pytest.raises(ValueError):
+                K.lease_pass(*args, masks, pts, 10)
+            continue
+        for g, w in zip(K.lease_pass(*args, masks, pts, 10),
+                        R.lease_pass_ref(*args, masks, pts, 10)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [7, 4608])
 def test_cuda_write_advance_matches_plain(cuda, n):
     rng, wts, rts, _r, _l = _tables(n, n)

@@ -21,7 +21,8 @@ import torch
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.core import CoherencePolicy as TPolicy
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                 variant_counts)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -53,12 +54,19 @@ BF16_STEP = dict(rtol=2 ** -7, atol=1e-5)
 @pytest.fixture
 def kernel_route(monkeypatch):
     """Force the kernel route on CPU tensors; count the calls that reach
-    each kernel wrapper (its plain version here)."""
-    calls = {"flash_prefill": 0, "ssd_chunk": 0, "rmsnorm": 0}
+    each kernel wrapper (its plain version here), and K8's by variant
+    ("rmsnorm.plain", "rmsnorm.add": the residual add fused in,
+    "rmsnorm.gate": Mamba2's gated norm)."""
+    calls = {"flash_prefill": 0, "ssd_chunk": 0, "rmsnorm": 0,
+             "rmsnorm.plain": 0, "rmsnorm.add": 0, "rmsnorm.gate": 0}
 
     def counting(name, fn):
         def wrapped(*a, **k):
             calls[name] += 1
+            if name == "rmsnorm":
+                calls["rmsnorm." + ("add" if k.get("residual") is not None
+                                    else "gate" if k.get("gate") is not None
+                                    else "plain")] += 1
             return fn(*a, **k)
         return wrapped
 
@@ -88,10 +96,13 @@ def _model(arch, **over):
                                                            params))
 
 
-# the kernels each family's prefill reaches
-WANT = {"tinyllama-1.1b": ("flash_prefill", "rmsnorm"),
-        "mamba2-130m": ("ssd_chunk", "rmsnorm"),
-        "zamba2-2.7b": ("flash_prefill", "ssd_chunk", "rmsnorm")}
+# the kernels (and K8's variants) each family's prefill reaches
+WANT = {"tinyllama-1.1b": ("flash_prefill", "rmsnorm", "rmsnorm.plain",
+                           "rmsnorm.add"),
+        "mamba2-130m": ("ssd_chunk", "rmsnorm", "rmsnorm.gate",
+                        "rmsnorm.add"),
+        "zamba2-2.7b": ("flash_prefill", "ssd_chunk", "rmsnorm",
+                        "rmsnorm.gate", "rmsnorm.add")}
 
 
 @pytest.mark.parametrize("arch", list(WANT))
@@ -162,6 +173,54 @@ def test_prefill_suffix_through_the_kernel_route_matches_jax(kernel_route,
                                    **BF16_STEP, err_msg=k)
     assert kernel_route["flash_prefill"] == cfg.n_layers
     assert kernel_route["rmsnorm"] == 2 * cfg.n_layers + 1
+    # the first norm alone is plain; every residual add runs in a norm
+    assert kernel_route["rmsnorm.plain"] == 1
+    assert kernel_route["rmsnorm.add"] == 2 * cfg.n_layers
+
+
+def _norms_per_step(cfg):
+    """K8's launches by variant in one decode step: the first attention
+    norm of a dense model is plain, every later norm takes the residual
+    add of the sublayer before (the final norm too), and each Mamba2 block
+    takes the gated norm."""
+    if cfg.family == "ssm":
+        return {"plain": 0, "add": 1, "gate": cfg.n_layers}
+    if cfg.family == "hybrid":
+        n_app = cfg.n_layers // cfg.attn_every
+        return {"plain": 0, "add": 2 * n_app + 1, "gate": cfg.n_layers}
+    return {"plain": 1, "add": 2 * cfg.n_layers, "gate": 0}
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("tinyllama-1.1b", {}), ("mamba2-130m", {}),
+    ("zamba2-2.7b", dict(n_layers=4, attn_every=2))])
+def test_decode_steps_through_the_fused_norms_match_jax(kernel_route, arch,
+                                                        over):
+    """The restructured layer loops (each sublayer's output carried into
+    the next norm) through 3 greedy decode steps after a prefill: logits
+    within 2e-4 of JAX, the same greedy tokens, and K8's launches by
+    variant per step as the fused design has them."""
+    cfg, tcfg, params, tparams = _model(arch, **over)
+    toks = np.random.default_rng(7).integers(1, cfg.vocab, (3, 11)) \
+        .astype(np.int32)
+    jcache, jl = j_prefill(cfg, params, {"tokens": jnp.asarray(toks)}, 24)
+    tcache, tl = prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)},
+                         24)
+    for step in range(3):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        nxt = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]
+        np.testing.assert_array_equal(tl.numpy()[:, -1].argmax(-1),
+                                      nxt[:, 0])
+        jcache, jl = j_decode_step(cfg, params, jcache, jnp.asarray(nxt),
+                                   jnp.int32(11 + step))
+        for k in kernel_route:
+            kernel_route[k] = 0
+        tcache, tl = decode_step(tcfg, tparams, tcache,
+                                 torch.from_numpy(nxt),
+                                 torch.tensor(11 + step, dtype=torch.int32))
+        assert {v: kernel_route["rmsnorm." + v] for v in
+                ("plain", "add", "gate")} == _norms_per_step(tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 def _serve_both(tcfg_cfg, prompts, max_new, **kw):
@@ -240,7 +299,9 @@ def test_cuda_prefill_runs_the_kernels_and_matches_cpu(cuda, arch):
     cache, logits = prefill(tcfg, _to_device(params, cuda),
                             {"tokens": toks.to(cuda)}, 320)
     counts = launch_counts()
-    assert all(counts[k] > 0 for k in WANT[arch]), counts
+    variants = variant_counts()["rmsnorm"]      # K8's launches by variant
+    assert all((variants.get(k[len("rmsnorm."):], 0) if "." in k
+                else counts[k]) > 0 for k in WANT[arch]), (counts, variants)
     torch.testing.assert_close(logits.cpu(), cpu_l, **TOL)
     for k in cpu_cache:
         tol = BF16_STEP if cache[k].dtype == torch.bfloat16 else TOL
