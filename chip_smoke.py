@@ -8,8 +8,11 @@ Phases (any failure exits non-zero; nothing is caught):
      ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (tinyllama-1.1b full width: token row 11264,
-     chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit (K1 one
-     device kernel a call, by torch.profiler), K4 within
+     chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit (K1 and K2
+     one device kernel a call, by torch.profiler; K2 also with no block
+     and every block masked), K4 -- also at kimi-k2's attention (Hkv 8,
+     G 8, Dh 112, its moe stack's segment at column 1792 of the token
+     row) and arctic's (Dh 128, G 7) -- within
      the bf16 (3e-2, and one bf16 ulp: its tensor-core variant) and fp32
      (2e-4: its SIMT variant) tolerances; median times (CUDA events):
      each kernel's and library call's device time
@@ -27,7 +30,7 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels printed; then the path again, warm, timed plain and then
      under ``torch.profiler`` (device busy/idle share, time by kernel and
      kind, host time by operator);
-     Then the fixed-wave dense-cache path, twice at full width and depth:
+     then the fixed-wave dense-cache path, twice at full width and depth:
      tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
      default metadata-only prefix leases), each with 4 replicas, 4096-slot
      dense caches and 8 requests of 2048-3072 random prompt tokens and 16
@@ -35,7 +38,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (K5 must launch on both), one decode step as on the paged path (K8:
      tinyllama 1 plain + 44 add, zamba2 54 gate + 19 add), then each again
      warm under the profiler (the card's activity only: idle share, device
-     time by kind);
+     time by kind); then the paged path serving kimi-k2-1t-a32b at full
+     width (d_model 7168, 64 / 8 heads, Dh 112, vocab 163840, 384 experts
+     top-8, d_ff_expert 2048, a shared expert, the dense layer's d_ff
+     16384), depth cut to 2 layers (1 dense + 1 moe: two cache stacks in
+     one pool token row), the same traffic as the tinyllama paged path,
+     the earlier paths' weights freed first and the card's peak memory
+     printed; its launch counts, one decode step and a profiled warm run
+     as on the tinyllama paged path;
   4. the same requests at full width and 2 layers on the card and on the
      CPU (the plain versions, by the caller's explicit device="cpu"), bf16
      weights (norm weights drawn too): a serving run on each device --
@@ -50,7 +60,11 @@ Phases (any failure exits non-zero; nothing is caught):
      fp32 weights (its bf16 arithmetic is chaotic; the bf16 run's distance
      is printed; its first decode step held to the bf16 tolerance) and,
      teacher-forced with the norm check, in bf16 (K7's tensor-core variant
-     in the prefill), 2048-slot caches, short prompts;
+     in the prefill), 2048-slot caches, short prompts; and a kimi-k2
+     paged lane the same way as the tinyllama one, at kimi's attention
+     shapes (d_model 7168, Dh 112, G 8) and 2 layers, with the vocab cut
+     to 32000 and the experts to 16 (top-8) so the CPU's fp32 anchor
+     fits;
   5. the kernel JSON line, then the result line.
 Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
 version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
@@ -58,7 +72,9 @@ zamba2: B = 4, Hkv = 32, G = 1, Dh = 80; T = 4096, kv_len = 3000), with
 SDPA over the live slice as its library yardstick; and the prefill
 kernels: K6 (causal GQA flash prefill) at both wave paths' 4 x 3072-token
 prompts (bf16; zamba2 also fp32) and the paged suffix prefill (16
-queries at q_offset 64, kv_len 80) against SDPA, K7 (the SSD intra-chunk
+queries at q_offset 64, kv_len 80) against SDPA -- the suffix also at
+kimi-k2's attention (64 / 8 heads, Dh 112) and a cold 64-token kimi
+prompt --, K7 (the SSD intra-chunk
 scan) at zamba2's (b 4, 12 chunks of 256, 80 heads, N = P = 64; bf16
 inputs on its tensor-core variant, bound by its bytes or its three-part
 bf16 products at 989 TFLOP/s; fp32 inputs on its SIMT variant, timed
@@ -69,7 +85,8 @@ tinyllama's norms and zamba2's, and at decode's rows, every (row, w)
 dtype mix, the plain one against ``F.rms_norm`` and the fused ones beside
 the eager chain they replace (``unfused_ms``).  K6's bound takes the
 bf16 tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8
-launch on the paged path and both wave paths and K7 on zamba2's.
+launch on the paged path and both wave paths and K7 on zamba2's, and
+K1-K4, K6 and K8 on the kimi-k2 paged path.
 
     python3 chip_smoke.py --phase4-seeds 0,1,2,3
     python3 chip_smoke.py --phase4-mutants 0,1,2,3
@@ -81,7 +98,8 @@ lane, the zamba2 lane's ratio); ``--phase4-mutants`` each bf16 lane clean
 and under each wrapper-level off-by-one (K6 q_offset + 1, K4 lengths - 1,
 K5 kv_len - 1, K8's weight rolled, K7's cum shifted by one position on
 the zamba2 lanes, K8's add variant dropping r, its gate variant reading z
-one column off), both checks' readings a line, then
+one column off; the paged-path ones on the kimi lane too), both checks'
+readings a line, then
 which seeds each check fails for each injection (exit 1 if the new check
 misses one the retired check caught).  Phase 1 also counts the HGMMA
 instructions (K6's wgmma) in the library's SASS, and the HMMA
@@ -262,8 +280,10 @@ def phase2_kernels(rows):
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_ref
+    from repro_torch.configs import get_arch
     from repro_torch.kernels.tardis_lease import kernel as K
     from repro_torch.kernels.tardis_lease import ref as R
+    from repro_torch.models import pool_layout
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -287,6 +307,18 @@ def phase2_kernels(rows):
         for x, y in zip(got, want):
             assert torch.equal(x, y), "K1 lease_pass differs from plain"
             err = max(err, max_err(x, y))
+    # --- K2 write_advance, its kernels a call counted before any CUDA graph
+    # is captured: after one the profiler showed none for it ------------
+    mask = masks[0]
+    for m in (mask, torch.zeros_like(mask), torch.ones_like(mask)):
+        got = K.write_advance(wts, rts, m, 500)
+        want = R.write_advance_ref(wts, rts, m, 500)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), "K2 write_advance differs from plain"
+    per_call = device_kernels(lambda: K.write_advance(wts, rts, mask, 500))
+    log(f"K2 write_advance: device kernels in one call: {per_call}")
+    assert list(per_call.values()) == [1] and "write_advance" in next(
+        iter(per_call)), f"K2 runs {per_call} a call, not one kernel"
     # one launch per call: no fill of the outputs before the kernel
     per_call = device_kernels(lambda: K.lease_pass(wts, rts, req, masks, pts,
                                                    64))
@@ -301,12 +333,7 @@ def phase2_kernels(rows):
         **timings(lambda: K.lease_pass(wts, rts, req, masks, pts, 64),
                   lambda: R.lease_pass_ref(wts, rts, req, masks, pts, 64)),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 12 * grp * n)))))
-    # --- K2 write_advance ---------------------------------------------------
-    mask = masks[0]
-    got = K.write_advance(wts, rts, mask, 500)
-    want = R.write_advance_ref(wts, rts, mask, 500)
-    for x, y in zip(got, want):
-        assert torch.equal(x, y), "K2 write_advance differs from plain"
+    # --- K2's row -----------------------------------------------------------
     nbytes = 3 * n * 4 + (2 * n + 1) * 4
     rows.append(dict(
         name="write_advance", source="src/repro_torch/kernels/tardis_lease/"
@@ -369,38 +396,81 @@ def phase2_kernels(rows):
                   lambda: view.index_copy_(0, lib_idx, tok)),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0)))))
     # --- K4 paged_decode: B=8, P=32, 4 kv heads x 8 query heads, dh 64 ----
-    hkv, grp_q, dh, p_max = 4, 8, 64, 32
     li = n_layers - 1
-    k_off, v_off = li * hkv * dh, (n_layers + li) * hkv * dh
-    page_rows = randint(0, n_blocks, (b, p_max))
-    lengths = randint(60, 100, (b,))
+    hkv, dh = 4, 64
+    k4_row(rows, g, "paged_decode", "paged", view, b, hkv, 8, dh, 32, chunk,
+           li * hkv * dh, (n_layers + li) * hkv * dh)
+    # ... and at the moe configs' attention shapes over pools of 2 layers:
+    # kimi-k2 (Dh 112, G 8; its moe stack's segment at offset 1792 of the
+    # token row, after the leading dense stack's) and arctic (Dh 128, G 7)
+    for name, path, arch in (("paged_decode.kimi", "kimi-k2-1t-a32b",
+                              "kimi-k2-1t-a32b"),
+                             ("paged_decode.arctic", "arctic-480b",
+                              "arctic-480b")):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+        stack = pool_layout(cfg)[-1]
+        hkv, dh = cfg.n_kv_heads, cfg.head_dim()
+        row = stack.offset + stack.token_elems
+        kpool = torch.randn((n_blocks * chunk, row), generator=g,
+                            device=dev).to(torch.bfloat16)
+        li = stack.n_layers - 1
+        k4_row(rows, g, name, path, kpool, b, hkv, cfg.n_heads // hkv, dh,
+               32, chunk, stack.offset + li * hkv * dh,
+               stack.offset + (stack.n_layers + li) * hkv * dh)
+        del kpool
+    launch_ms = median_ms(lambda: wts.add_(0), iters=50)
+    for r in rows:
+        r["route"] = "cuda"
+        r["launch_ms"] = launch_ms
+        _log_row(r)
+    log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us)")
+    del pool, view
+
+
+def k4_row(rows, g, name, path, view, b, hkv, grp_q, dh, p_max, chunk,
+           k_off, v_off):
+    """K4 against its plain version over the pool rows ``view`` at one
+    attention shape -- bf16 on its tensor-core variant within 3e-2 and one
+    bf16 rounding step, fp32 on its SIMT variant within 2e-4 -- then its
+    row: device time beside gather + SDPA (a yardstick the port never
+    calls) and its bound."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+    dev = view.device
+    n_rows = view.shape[0]
+    page_rows = torch.randint(0, n_rows // chunk, (b, p_max), generator=g,
+                              device=dev, dtype=torch.int32)
+    lengths = torch.randint(60, 100, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
     q = torch.randn((b, hkv, grp_q, dh), generator=g, device=dev)
     ck = torch.randn((b, hkv, dh), generator=g, device=dev)
     cv = torch.randn((b, hkv, dh), generator=g, device=dev)
     errs = {}
-    for name, qd, pd, tol in (("bf16", torch.bfloat16, torch.bfloat16, BF16),
-                              ("fp32", torch.float32, torch.float32, FP32)):
-        pv = view if pd == torch.bfloat16 else view.float()
-        args = (q.to(qd), ck.to(pd), cv.to(pd), pv, page_rows, lengths)
+    for tag, qd, tol in (("bf16", torch.bfloat16, BF16),
+                         ("fp32", torch.float32, FP32)):
+        pv = view if qd == torch.bfloat16 else view.float()
+        args = (q.to(qd), ck.to(qd), cv.to(qd), pv, page_rows, lengths)
         got, variant = variant_of(DK.paged_decode, lambda: DK.paged_decode(
             *args, chunk=chunk, k_off=k_off, v_off=v_off))
         # bf16: the tensor-core variant; fp32: the SIMT variant
-        assert variant == ("mma" if pd == torch.bfloat16 else "simt"), \
-            f"K4 {name} took the {variant} variant"
+        assert variant == ("mma" if qd == torch.bfloat16 else "simt"), \
+            f"K4 {name} {tag} took the {variant} variant"
         want = paged_decode_attention_ref(
             args[0].reshape(b, 1, hkv * grp_q, dh),
             args[1].reshape(b, 1, hkv, dh), args[2].reshape(b, 1, hkv, dh),
             pv, page_rows, lengths, chunk=chunk, k_off=k_off, v_off=v_off,
             hkv=hkv).reshape(b, hkv, grp_q, dh)
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        if pd == torch.bfloat16:
+        if qd == torch.bfloat16:
             # Both sides accumulate in fp32 and round once to bf16, so a
             # dropped position or a wrong tail tile shows as more than one
             # rounding step.
             torch.testing.assert_close(got.float(), want.float(), **BF16_ULP)
-        errs[name] = max_err(got.float(), want.float())
+        errs[tag] = max_err(got.float(), want.float())
         del pv
-    log(f"K4 paged_decode max |err|: {errs} (bf16: tensor-core variant; "
+    log(f"K4 {name} max |err|: {errs} (bf16: tensor-core variant; "
         f"fp32: SIMT)")
     args = (q.to(torch.bfloat16), ck.to(torch.bfloat16),
             cv.to(torch.bfloat16), view, page_rows, lengths)
@@ -437,22 +507,17 @@ def phase2_kernels(rows):
     nbytes = (q.numel() * 2 * 2 + 2 * ck.numel() * 2 + pages * 4 + b * 4
               + 2 * live * hkv * dh * 2)
     rows.append(dict(
-        name="paged_decode", source="src/repro_torch/kernels/"
-        "decode_attention/csrc/paged_decode.cu", replaces="src/repro/"
-        "kernels/decode_attention/kernel.py:146", max_abs_err=errs["bf16"],
-        shape=f"B={b} P={p_max} Hkv={hkv} G={grp_q} dh={dh} bf16",
+        name=name, wrapper="paged_decode", path=path,
+        source="src/repro_torch/kernels/decode_attention/csrc/"
+        "paged_decode.cu", replaces="src/repro/kernels/decode_attention/"
+        "kernel.py:146", max_abs_err=errs["bf16"],
+        shape=f"B={b} P={p_max} Hkv={hkv} G={grp_q} dh={dh} "
+        f"k_off={k_off} v_off={v_off} row={view.shape[1]} bf16",
         variant="mma",
         **timings(lambda: DK.paged_decode(*args, chunk=chunk, k_off=k_off,
                                           v_off=v_off), plain, library),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(nbytes, 4 * (live + b) * hkv * grp_q * dh)))))
-    launch_ms = median_ms(lambda: wts.add_(0), iters=50)
-    for r in rows:
-        r["route"] = "cuda"
-        r["launch_ms"] = launch_ms
-        _log_row(r)
-    log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us)")
-    del pool, view
 
 
 def _log_row(r):
@@ -573,7 +638,13 @@ def phase2_prefill_kernels(rows):
             ("flash_prefill.zamba2", "zamba2-2.7b", 4, 3072, 3072, 32, 32,
              80, 0, 3072, (("bf16", b16, BF16), ("fp32", f32, FP32))),
             ("flash_prefill.paged_suffix", "paged", 1, 16, 80, 32, 4, 64,
-             64, 80, (("bf16", b16, BF16), ("fp32", f32, FP32)))):
+             64, 80, (("bf16", b16, BF16), ("fp32", f32, FP32))),
+            # kimi-k2's attention (64 / 8 heads, Dh 112): the paged
+            # suffix and a cold 64-token prompt
+            ("flash_prefill.kimi_suffix", "kimi-k2-1t-a32b", 1, 16, 80, 64,
+             8, 112, 64, 80, (("bf16", b16, BF16), ("fp32", f32, FP32))),
+            ("flash_prefill.kimi_cold", "kimi-k2-1t-a32b", 1, 64, 64, 64, 8,
+             112, 0, 64, (("bf16", b16, BF16), ("fp32", f32, FP32)))):
         q32, k32, v32 = randn(b, sq, h, dh), randn(b, skv, hkv, dh), \
             randn(b, skv, hkv, dh)
         kw = dict(causal=True, q_offset=q_off, kv_len=kv_len)
@@ -888,7 +959,7 @@ def profile_path(label, serve, smi, top=12, with_host=True):
         log("profile: the profiler showed no device time")
         return
     kinds = {}
-    ours = ("lease_pass", "write_ts", "advance_kernel", "gather_kernel",
+    ours = ("lease_pass", "write_advance", "gather_kernel",
             "scatter_kernel", "paged_decode", "dense_decode",
             "flash_prefill", "ssd_chunk", "rmsnorm_rows")
     for e in dev_rows:
@@ -943,8 +1014,8 @@ def decode_step_launches(cfg, params, path):
                          dtype=torch.int32)
     if path == "paged":
         chunk, pages = 16, 4
-        (spec,) = pool_layout(cfg)
-        row = -(-(spec.offset + spec.token_elems) // LANES) * LANES
+        last = pool_layout(cfg)[-1]
+        row = -(-(last.offset + last.token_elems) // LANES) * LANES
         pool = torch.randn((b * pages * chunk, row), generator=g,
                            device=dev).to(dtype)
         page_rows = torch.arange(b * pages, dtype=torch.int32,
@@ -1117,6 +1188,92 @@ def phase3_wave_paths(smi):
     return out
 
 
+# kimi-k2-1t-a32b on the paged path: full width (d_model 7168, 64 / 8
+# heads, Dh 112, vocab 163840, 384 experts top-8, d_ff_expert 2048, one
+# shared expert, the dense layer's d_ff 16384), depth cut to 2 layers --
+# the leading dense layer and one moe layer, the reference tests' own
+# reduction of kimi -- so that its ~40 GB of bf16 weights fit the card
+KIMI = "kimi-k2-1t-a32b"
+
+
+def kimi_config():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(KIMI), n_layers=2)
+
+
+def kimi_phase4_config():
+    """Phase 4's kimi lane: the attention at full width (d_model 7168, Dh
+    112, G 8) and the dense layer's d_ff, 2 layers, with what the CPU's
+    fp32 anchor cannot hold cut: vocab 163840 -> 32000 and 384 experts ->
+    16 (top-8 kept)."""
+    return dataclasses.replace(kimi_config(), vocab=32000, n_experts=16)
+
+
+def phase3_kimi_path(smi):
+    """The paged path serving kimi-k2 at full width (``kimi_config``), the
+    weights of the earlier paths freed first: the launch counts set to 0
+    just before the run and read just after (K1-K4, K6, K8; every K4
+    launch on the tensor-core variant at Dh 112), the card's peak memory,
+    one decode step's launches, then warm and profiled.  Returns (launch
+    counts, launches by variant)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params, param_leaves
+    cfg = kimi_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = param_leaves(params)
+    n_par = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"kimi-k2 weights on {smi}: {n_par / 1e9:.3f} B params, "
+        f"{n_bytes / 1e9:.2f} GB, drawn in {time.perf_counter() - t0:.1f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    reset_launch_counts()
+    cluster, done, report, dt = _serve(cfg, params, "cuda", 4096, 512)
+    counts = launch_counts()
+    variants = variant_counts()
+    n_tok = sum(len(r.output) for r in done)
+    assert all(r.done and len(r.output) == r.max_new for r in done)
+    assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
+    assert bool(torch.isfinite(cluster.prefix_engine._kv_pool).all())
+    assert report["prefix_prefill_tokens_skipped"] > 0, "no prefix hit"
+    assert report["kv_pool_stacks"] == "dense,moe", report["kv_pool_stacks"]
+    assert (report["pool_tokens_appended_dense"]
+            == report["pool_tokens_appended_moe"]
+            == report["kv_tokens_appended"] > 0)
+    log(f"kimi-k2 paged path on {smi}: full width ({cfg.n_layers} layers: "
+        f"{cfg.first_dense_layers} dense + "
+        f"{cfg.n_layers - cfg.first_dense_layers} moe, d_model "
+        f"{cfg.d_model}, Dh {cfg.head_dim()}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}), {len(done)} requests served, {n_tok} tokens in "
+        f"{dt:.2f} s = {n_tok / dt:.1f} tokens/s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"coherence_report (kimi-k2) on {smi}: " + json.dumps(
+        {k: (int(v) if isinstance(v, (int, np.integer)) else v)
+         for k, v in report.items()}))
+    log(f"launches on the kimi-k2 paged path: {counts}")
+    log(f"launches by variant on the kimi-k2 paged path: {variants}")
+    missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
+    assert not missing, f"kernels never launched on the kimi path: {missing}"
+    assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
+        f"K4 launches by variant (kimi): {variants['paged_decode']}"
+    del cluster
+    torch.cuda.empty_cache()
+    _hold_step("paged path, kimi-k2-1t-a32b", cfg, params, "paged")
+    profile_path("kimi-k2 paged path", lambda: _serve(
+        cfg, params, "cuda", 4096, 512), smi)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
 # Phase 4's bf16 check (``norm_check``): at every teacher-forced step the
 # card's logits may lie at most NORM_FACTOR times as far (L2 over all rows)
 # from an fp32 anchor as the plain bf16 path's on the CPU, plus
@@ -1128,12 +1285,12 @@ NORM_FLOOR = 1e-3
 PHASE4_STEPS = 4        # teacher-forced decode steps after the prefill
 # the wrapper-level off-by-ones of ``--phase4-mutants`` and the bf16 lanes
 # whose path calls each wrapper
-MUTANTS = {"K6 q_offset+1": ("paged", "wave"),
-           "K4 lengths-1": ("paged",),
+MUTANTS = {"K6 q_offset+1": ("paged", "wave", "kimi"),
+           "K4 lengths-1": ("paged", "kimi"),
            "K5 kv_len-1": ("wave",),
-           "K8 weight rolled": ("paged", "wave"),
+           "K8 weight rolled": ("paged", "wave", "kimi"),
            "K7 cum shifted": ("zamba2",),
-           "K8 add drops r": ("paged", "wave", "zamba2"),
+           "K8 add drops r": ("paged", "wave", "zamba2", "kimi"),
            "K8 gate z one column off": ("zamba2",)}
 
 
@@ -1223,15 +1380,17 @@ def _tf_paged(cfg, params, dev, reqs, fed=None, n_steps=PHASE4_STEPS,
     from repro_torch.models import (decode_step_paged, pool_layout, prefill,
                                     prefill_suffix)
     dtype = params["embed"].dtype
-    (spec,) = pool_layout(cfg)
-    row = -(-(spec.offset + spec.token_elems) // LANES) * LANES
+    stacks = pool_layout(cfg)
+    row = -(-(stacks[-1].offset + stacks[-1].token_elems) // LANES) * LANES
 
     def token_rows(cache, lo, hi):      # ServingCluster._cache_token_rows
         m = hi - lo
-        kv = [cache[c][:, 0, lo:hi].permute(1, 0, 2, 3).reshape(m, -1)
-              for c in spec.cache_keys]
         out = torch.zeros((m, row), dtype=dtype, device=dev)
-        out[:, spec.offset:spec.offset + spec.token_elems] = torch.cat(kv, 1)
+        for spec in stacks:             # each stack's segment at its offset
+            kv = [cache[c][:, 0, lo:hi].permute(1, 0, 2, 3).reshape(m, -1)
+                  for c in spec.cache_keys]
+            out[:, spec.offset:spec.offset + spec.token_elems] = torch.cat(
+                kv, 1)
         return out
 
     plens = np.asarray([len(r.prompt) for r in reqs], np.int32)
@@ -1254,10 +1413,10 @@ def _tf_paged(cfg, params, dev, reqs, fed=None, n_steps=PHASE4_STEPS,
         free += n_pages[i] - n_shared
         cache_len = -(-plen // chunk) * chunk
         toks = np.pad(r.prompt[n_sys:], (0, cache_len - plen))
-        cache = {c: torch.zeros((cfg.n_layers, 1, cache_len) + tuple(
+        cache = {c: torch.zeros((spec.n_layers, 1, cache_len) + tuple(
             pre[c].shape[3:]), dtype=dtype, device=dev)
-            for c in spec.cache_keys}
-        for c in spec.cache_keys:
+            for spec in stacks for c in spec.cache_keys}
+        for c in cache:
             cache[c][:, :, :n_sys] = pre[c]
         cache, lg = prefill_suffix(
             cfg, params, {"tokens": torch.as_tensor(toks[None], device=dev)},
@@ -1384,8 +1543,11 @@ def _phase4_params(cfg, seed):
 
 
 def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
-                       cfg=None):
-    """The paged lane, full width at 2 layers (or ``cfg``), bf16 weights.
+                       cfg=None, lane="paged"):
+    """A paged lane, bf16 weights: ``lane`` "paged" -- tinyllama, full
+    width at 2 layers (or ``cfg``) -- or "kimi" -- kimi-k2 at its
+    attention's full width, cut as ``kimi_phase4_config`` says (or
+    ``cfg``).
     A serving run on the card and one on the CPU (the plain versions, by
     the explicit device="cpu"): identical integer coherence counters
     (held), greedy agreement and the retired check's reading -- the first
@@ -1397,7 +1559,8 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
     from repro_torch.configs import get_arch
     from repro_torch.runtime import Request
     if cfg is None:
-        cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
+        cfg = (kimi_phase4_config() if lane == "kimi" else
+               dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2))
     params = _phase4_params(cfg, seed)
 
     def serve(dev):
@@ -1407,7 +1570,8 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
         return done, report, cluster.trace, dt
 
     dg, rg, tg, sg = serve(card)
-    dc, rc, tc, sc = _memo(memo, ("paged serve", seed), lambda: serve("cpu"))
+    dc, rc, tc, sc = _memo(memo, (lane + " serve", seed),
+                           lambda: serve("cpu"))
     ints, bad = _counters(rg, rc)
     assert not hold or not bad, f"coherence counters differ card vs cpu: {bad}"
     first_g = next(e for e in tg if e["ev"] == "tick")
@@ -1422,7 +1586,12 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
     same = sum(int(a == b) for x, y in zip(dg, dc)
                for a, b in zip(x.output, y.output))
     total = sum(len(x.output) for x in dg)
-    label = f"card vs cpu ({smi}; seed {seed}; full width, 2 layers)"
+    label = (f"card vs cpu ({smi}; seed {seed}; "
+             + ("full width, 2 layers)" if lane == "paged" else
+                f"kimi-k2: d_model {cfg.d_model}, Dh {cfg.head_dim()}, G "
+                f"{cfg.n_heads // cfg.n_kv_heads}, {cfg.n_layers} layers, "
+                f"vocab {cfg.vocab}, {cfg.n_experts} experts top-"
+                f"{cfg.top_k})"))
     log(f"{label}: {len(ints) - len(bad)} of {len(ints)} integer counters "
         f"identical; retired check: first-tick logits max |err| "
         f"{float(d.max()):.4g} (worst {ratio:.3f} of 3e-2 + 3e-2 |v|; "
@@ -1430,7 +1599,7 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
         f"tokens agree {same}/{total}; card {sg:.2f} s, cpu {sc:.2f} s")
     reqs = _requests(Request, np, cfg.vocab, seed=seed)
     new = _teacher_forced(label, "paged", cfg, params, reqs, card, hold,
-                          memo, ("paged", seed))
+                          memo, (lane, seed))
     return dict(old_ratio=ratio, old_ok=not bad and ratio <= 1, **new)
 
 
@@ -1544,8 +1713,10 @@ def phase4_seed_sweep(smi, seeds, card="cuda"):
     lane's ratio; one JSON line per seed."""
     for seed in seeds:
         paged = phase4_card_vs_cpu(smi, seed, hold=False, card=card)
+        kimi = phase4_card_vs_cpu(smi, seed, hold=False, card=card,
+                                  lane="kimi")
         waves = phase4_wave_card_vs_cpu(smi, seed, hold=False, card=card)
-        print(json.dumps({"seed": seed, "paged": paged, **{
+        print(json.dumps({"seed": seed, "paged": paged, "kimi": kimi, **{
             f"{k}_wave": v for k, v in waves.items()}}), flush=True)
 
 
@@ -1626,10 +1797,11 @@ def phase4_mutants(smi, seeds, card="cuda", cfgs=None):
 
     def lanes(seed, memo, which):
         out = {}
-        if "paged" in which:
-            out["paged"] = phase4_card_vs_cpu(
-                smi, seed, hold=False, memo=memo, card=card,
-                cfg=cfgs.get("paged"))
+        for lane in ("paged", "kimi"):
+            if lane in which:
+                out[lane] = phase4_card_vs_cpu(
+                    smi, seed, hold=False, memo=memo, card=card,
+                    cfg=cfgs.get(lane), lane=lane)
         for lane, arch in (("wave", "tinyllama-1.1b"),
                            ("zamba2", "zamba2-2.7b")):
             if lane in which:
@@ -1642,8 +1814,8 @@ def phase4_mutants(smi, seeds, card="cuda", cfgs=None):
     for seed in seeds:
         memo = {}
         print(json.dumps({"seed": seed, "mutant": None,
-                          **lanes(seed, memo, ("paged", "wave", "zamba2"))}),
-              flush=True)
+                          **lanes(seed, memo, ("paged", "wave", "zamba2",
+                                               "kimi"))}), flush=True)
         for name, which in MUTANTS.items():
             with inject(name):
                 res = lanes(seed, memo, which)
@@ -1701,8 +1873,12 @@ def main() -> int:
     stamp("phase 3 (paged path)")
     wave_counts = phase3_wave_paths(smi)
     stamp("phase 3 (wave paths)")
+    kimi_counts = phase3_kimi_path(smi)
+    stamp("phase 3 (kimi-k2 paged path)")
     phase4_card_vs_cpu(smi)
     stamp("phase 4 (paged path)")
+    phase4_card_vs_cpu(smi, lane="kimi")
+    stamp("phase 4 (kimi-k2 paged lane)")
     phase4_wave_card_vs_cpu(smi)
     stamp("phase 4 (wave paths)")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1711,12 +1887,14 @@ def main() -> int:
             "unfused_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
     # main path); K8's rows count their variant's
-    path_counts = {"paged": (counts, variants), **wave_counts}
+    # (arctic's K4 row: no path serves arctic on the card, 0 launches)
+    path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
+                   **wave_counts}
     for r in rows:
-        c, v = path_counts[r.get("path", "paged")]
+        c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])
-        r["launches"] = (v[wrapper].get(r["variant"], 0)
-                         if wrapper == "rmsnorm" else c[wrapper])
+        r["launches"] = (v.get(wrapper, {}).get(r["variant"], 0)
+                         if wrapper == "rmsnorm" else c.get(wrapper, 0))
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")

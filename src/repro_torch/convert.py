@@ -2,7 +2,12 @@
 
 The JAX package stacks per-layer parameters on a leading ``n_layers`` axis
 (``repro.models.transformer.init_params``); the port keeps a list with one
-dict per layer.  The hybrid family's ``groups`` are stacked on two axes
+dict per layer -- the moe family's ``dense_layers`` (kimi's leading dense
+layers) too.  A moe layer's leaves come across as they are: ``router``
+(D, E) in fp32, the expert stacks ``w_gate`` / ``w_up`` (E, D, F) and
+``w_down`` (E, F, D), the ``shared`` expert and arctic's dense
+``residual`` MLP (each a {w_gate, w_up, w_down} dict).  The hybrid
+family's ``groups`` are stacked on two axes
 (n_app, per) and become a list of lists; its weight-shared ``shared``
 block is one dict in both packages.  Leaves arrive as numpy arrays (bf16 ones as ml_dtypes
 ``bfloat16``, which torch cannot wrap directly, so they travel as int16
@@ -32,13 +37,15 @@ def _tree(x, device):
 
 
 def params_from_jax(tree: Mapping[str, Any], device="cpu") -> dict:
-    """Map a dense, ssm or hybrid JAX parameter tree (numpy leaves) to the
-    port's parameter dict: ``layers`` unstacked into a per-layer list,
-    ``groups`` into a list (per application) of per-layer lists."""
-    stacked = ("layers", "groups")
+    """Map a dense, moe, ssm or hybrid JAX parameter tree (numpy leaves)
+    to the port's parameter dict: ``layers`` and ``dense_layers``
+    unstacked into per-layer lists, ``groups`` into a list (per
+    application) of per-layer lists."""
+    stacked = ("layers", "dense_layers", "groups")
     out = {k: _tree(v, device) for k, v in tree.items() if k not in stacked}
-    if "layers" in tree:
-        out["layers"] = _unstack(_tree(tree["layers"], device))
+    for key in ("layers", "dense_layers"):
+        if key in tree:
+            out[key] = _unstack(_tree(tree[key], device))
     if "groups" in tree:
         out["groups"] = [_unstack(g) for g in
                          _unstack(_tree(tree["groups"], device))]

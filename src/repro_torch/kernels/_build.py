@@ -102,7 +102,7 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of every entry point (all return cudaError_t as int)
 SIGNATURES = {
     "tardis_lease_pass": [_VP] * 6 + [_I32, _I32, _I32] + [_VP] * 5,
-    "tardis_write_advance": [_VP] * 3 + [_I32, _I32] + [_VP] * 4,
+    "tardis_write_advance": [_VP] * 3 + [_I32] * 3 + [_VP] * 4,
     "tardis_gather_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
     "tardis_scatter_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
     "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32]

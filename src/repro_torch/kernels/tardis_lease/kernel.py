@@ -15,6 +15,15 @@ from . import ref
 
 LANES = 128
 MAX_GROUPS = 64      # K1: the groups a CTA reduces in shared memory
+MAX_CLUSTER = 8      # CTAs of a thread-block cluster (the portable size)
+# K2: threads a CTA, and entries a thread takes before the launch takes
+# another CTA (write_advance.cu holds up to kPer = 8 in registers).  One
+# a thread: on an NVIDIA H100 80GB HBM3 (700 W) a cluster of 5 CTAs ran
+# the serving table (4608 blocks) as fast as one CTA holding 5 entries a
+# thread (3.52 vs 3.56 us), and 70000 blocks on 8 CTAs 4x as fast as on
+# one (scripts/k2_variants.py)
+K2_THREADS = 1024
+K2_PER_THREAD = 1
 
 
 def _check_i32(name, t, shape=None, device=None):
@@ -62,7 +71,9 @@ def lease_pass(wts, rts, req, masks, pts_vec, lease):
 def write_advance(wts, rts, mask, pts: int):
     """K2.  wts/rts/mask (N,) int32, pts a host int.  Returns (new_wts,
     new_rts, ts ()) with ts = max(pts, max(masked rts) + 1) left on the
-    tables' device."""
+    tables' device: on CUDA tensors ONE launch, of
+    :func:`write_advance_ctas` CTAs (more than one: a thread-block
+    cluster)."""
     n = wts.shape[0]
     dev = wts.device
     for name, t in (("wts", wts), ("rts", rts), ("mask", mask)):
@@ -73,9 +84,17 @@ def write_advance(wts, rts, mask, pts: int):
     new_rts = torch.empty_like(rts)
     ts = torch.empty((), dtype=torch.int32, device=dev)
     launch("tardis_write_advance", ptr(wts), ptr(rts), ptr(mask), int(pts),
-           n, ptr(new_wts), ptr(new_rts), ptr(ts))
+           n, write_advance_ctas(n), ptr(new_wts), ptr(new_rts), ptr(ts))
     write_advance.launches += 1
     return new_wts, new_rts, ts
+
+
+def write_advance_ctas(n: int) -> int:
+    """K2's CTAs for a table of ``n`` entries: enough that no thread takes
+    more than ``K2_PER_THREAD`` of them, at most one cluster of
+    ``MAX_CLUSTER`` (whose threads then hold up to 8 each in registers
+    and read any rest twice)."""
+    return max(1, min(MAX_CLUSTER, -(-n // (K2_THREADS * K2_PER_THREAD))))
 
 
 def _col_blocks(col_lo: int, width: int) -> None:

@@ -49,7 +49,9 @@ def write_advance_ref(wts, rts, mask, pts):
     """K2's function: ts = max(pts, max(masked rts, -1) + 1); wts = rts = ts
     on every masked block.  Returns (new_wts, new_rts, ts) int32."""
     m = mask != 0
-    top = torch.where(m, rts, torch.full_like(rts, -1)).amax()
+    # the max starts from its identity, -1, which also gives the answer
+    # for an empty table: ts = max(pts, 0)
+    top = F.pad(torch.where(m, rts, -1), (0, 1), value=-1).amax()
     ts = torch.clamp_min(top + 1, int(pts)).to(torch.int32)
     return torch.where(m, ts, wts), torch.where(m, ts, rts), ts
 

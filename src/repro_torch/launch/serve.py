@@ -4,7 +4,9 @@ Starts a Tardis-coherent replica cluster (one host) on the selected
 architecture -- its reduced config, or with ``--full-width`` the published
 one -- with random weights from ``--seed``, serves synthetic requests
 sharing a system prompt and prints the coherence report.  The dense/vlm
-families serve through the paged KV pool; the ssm and hybrid families
+and moe families serve through the paged KV pool (kimi-k2's leading dense
+layers and its moe layers as two cache stacks side by side in each pool
+token row); the ssm and hybrid families
 serve fixed waves on dense caches of ``--cache-len`` slots.  Runs on the
 card unless ``--device cpu``.
 """
@@ -21,6 +23,7 @@ from ..configs import ARCHS, get_arch, reduced
 from ..core import CONSISTENCY_MODELS, CoherencePolicy
 from ..device import pick_device
 from ..models import init_params
+from ..models.transformer import PORTED_FAMILIES
 from ..runtime import Request, ServingCluster
 
 
@@ -76,8 +79,8 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
-        raise SystemExit(f"the port serves the dense, ssm and hybrid "
+    if cfg.family not in PORTED_FAMILIES:
+        raise SystemExit(f"the port serves the {', '.join(PORTED_FAMILIES)} "
                          f"families; {args.arch} is {cfg.family}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32

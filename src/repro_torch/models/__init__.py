@@ -1,5 +1,5 @@
 """Model paths of the port (plain PyTorch around the kernels): the
-dense/vlm, ssm and hybrid families."""
+dense/vlm, moe, ssm and hybrid families."""
 from .transformer import forward, init_params, logits_fn, param_leaves
 from .decoding import (PAGED_FAMILIES, StackSpec, decode_step,
                        decode_step_paged, init_cache, pool_layout, prefill,

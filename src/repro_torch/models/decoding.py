@@ -3,6 +3,9 @@ and the paged single-token decode (the port of ``repro.models.decoding``).
 
 Caches keep the JAX layout, stacked on a leading layer axis:
   * dense/vlm: ``{"k", "v"}`` each (L, B, T, Hkv, Dh);
+  * moe: ``{"k", "v"}`` for the moe layers and, with leading dense layers
+    (kimi), ``{"dk", "dv"}`` for those: two cache stacks, which the paged
+    path lays side by side in one pool token row (``pool_layout``);
   * ssm: ``{"state"}`` (L, B, H, P, N) fp32 and ``{"conv"}`` (L, B, K-1, C);
   * hybrid: those two plus ``{"ak", "av"}`` (n_app, B, T, Hkv, Dh) for the
     shared attention block's per-application caches.
@@ -24,19 +27,20 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels.tardis_lease.kernel import scatter_rows
+from ..kernels.tardis_lease.kernel import LANES, scatter_rows
 from .ssm import ssm_block
-from .transformer import (PORTED_FAMILIES, Params, _embed, _mlp_after,
-                          attn_decode, attn_decode_paged, attn_prefill,
-                          attn_prefill_cached, logits_fn, residual_norm,
-                          settle)
+from .transformer import (ATTN_FAMILIES, PORTED_FAMILIES, Params, _embed,
+                          _mlp_after, attn_decode, attn_decode_paged,
+                          attn_prefill, attn_prefill_cached, logits_fn,
+                          residual_norm, settle)
 
 Cache = Dict[str, Any]
 
-# families whose decode KV can live in LeaseEngine pool pages.  The JAX
-# package also pages the moe family (dual stacks); the port adds it with
-# the moe slice.
-PAGED_FAMILIES = ("dense", "vlm")
+# families whose decode KV can live in LeaseEngine pool pages: every
+# attention-cache family (an SSM state is not position-addressable
+# block-wise; moe pages BOTH its cache stacks through named pools
+# interleaved in one token row)
+PAGED_FAMILIES = ATTN_FAMILIES
 
 
 class StackSpec(NamedTuple):
@@ -46,7 +50,7 @@ class StackSpec(NamedTuple):
     params_key: str     # p[...] layer params
     cache_keys: Tuple[str, str]   # dense-cache (k, v) names for this stack
     n_layers: int       # layers in this stack
-    kind: str           # "mlp" (the layer body after attention)
+    kind: str           # "mlp" | "moe" (the layer body after attention)
     offset: int         # element column offset of the segment in the row
     token_elems: int    # unpadded elements per token (2 * n_layers*hk*dh)
 
@@ -54,13 +58,29 @@ class StackSpec(NamedTuple):
 def pool_layout(cfg: ArchConfig) -> List[StackSpec]:
     """Ordered cache stacks of a paged family and their token-row layout:
     one stack's per-token segment packs all its layers' K then all its
-    layers' V and is lane-padded (the serving cluster asserts the engine
-    computed the same offsets)."""
+    layers' V and is lane-padded; segments lie back to back in
+    forward-pass order, so the moe family's leading dense stack comes
+    first (the serving cluster asserts the engine computed the same
+    offsets).  The dense-cache paths walk the same stacks."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"no paged layout for family {cfg.family!r} in the port")
-    te = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim()
-    return [StackSpec("kv", "layers", ("k", "v"), cfg.n_layers, "mlp", 0, te)]
+    if cfg.family == "moe":
+        stacks = []
+        if cfg.first_dense_layers:
+            stacks.append(("dense", "dense_layers", ("dk", "dv"),
+                           cfg.first_dense_layers, "mlp"))
+        stacks.append(("moe", "layers", ("k", "v"),
+                       cfg.n_layers - cfg.first_dense_layers, "moe"))
+    else:
+        stacks = [("kv", "layers", ("k", "v"), cfg.n_layers, "mlp")]
+    hkd = cfg.n_kv_heads * cfg.head_dim()
+    out, off = [], 0
+    for pool, pkey, ckeys, n, kind in stacks:
+        te = 2 * n * hkd
+        out.append(StackSpec(pool, pkey, ckeys, n, kind, off, te))
+        off += -(-te // LANES) * LANES
+    return out
 
 
 def _attn_cache(cfg, n, b, t, dtype, device):
@@ -79,11 +99,15 @@ def _ssm_cache(cfg, n, b, dtype, device):
 
 def init_cache(cfg: ArchConfig, b: int, t: int, dtype=torch.bfloat16,
                device="cpu") -> Cache:
-    """Zeroed decode caches of the dense/vlm, ssm and hybrid families."""
+    """Zeroed decode caches of the dense/vlm, moe, ssm and hybrid
+    families."""
     fam = cfg.family
-    if fam in ("dense", "vlm"):
-        k, v = _attn_cache(cfg, cfg.n_layers, b, t, dtype, device)
-        return {"k": k, "v": v}
+    if fam in ATTN_FAMILIES:
+        out = {}
+        for spec in pool_layout(cfg):
+            k, v = _attn_cache(cfg, spec.n_layers, b, t, dtype, device)
+            out.update(zip(spec.cache_keys, (k, v)))
+        return out
     if fam == "ssm":
         s, c = _ssm_cache(cfg, cfg.n_layers, b, dtype, device)
         return {"state": s, "conv": c}
@@ -124,12 +148,16 @@ def decode_step(cfg: ArchConfig, p: Params, cache: Cache, tokens,
     x = p["embed"][tokens.long()]
     r = None
     new_cache = dict(cache)
-    if fam in ("dense", "vlm"):
-        for li, layer in enumerate(p["layers"]):
-            x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
-            y, _kc, _vc = attn_decode(layer["attn"], cfg, xn,
-                                      cache["k"][li], cache["v"][li], cur_idx)
-            x, r = _mlp_after(cfg, layer, x, y)
+    if fam in ATTN_FAMILIES:
+        for spec in pool_layout(cfg):
+            ck, cv = spec.cache_keys
+            for li, layer in enumerate(p[spec.params_key]):
+                x, xn = residual_norm(x, r, layer["attn"]["norm"],
+                                      cfg.norm_eps)
+                y, _kc, _vc = attn_decode(layer["attn"], cfg, xn,
+                                          cache[ck][li], cache[cv][li],
+                                          cur_idx)
+                x, r = _mlp_after(cfg, layer, x, y)
     elif fam == "ssm":
         convs: List = []
         x, r = _ssm_layers_decode(cfg, p["layers"], x, r, cache, 0, convs)
@@ -158,13 +186,15 @@ def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
     ``page_rows``: (B, P) int32 page tables; ``lengths``: (B,) int32 tokens
     already in pages (== the decode position); ``tokens``: (B, 1) int32,
     all on the pool's device.  Every layer's fresh K and V for the new
-    token gather into ONE token row, which K3's scatter writes into its
-    page **in place** -- the JAX version donated the pool buffer and
-    returned a new one.  Returns (pool_rows, logits (B, 1, V)).
+    token -- every cache stack's, each at its segment offset -- gather
+    into ONE token row, which K3's scatter writes into its page **in
+    place** (the JAX version donated the pool buffer and returned a new
+    one).  Returns (pool_rows, logits (B, 1, V)).
     """
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
-            f"paged decode supports the dense family, not {cfg.family!r}")
+            f"paged decode supports the attention-cache families, not "
+            f"{cfg.family!r}")
     x = _embed(cfg, p, {"tokens": tokens})
     b = x.shape[0]
     hkd = cfg.n_kv_heads * cfg.head_dim()
@@ -186,7 +216,8 @@ def decode_step_paged(cfg: ArchConfig, p: Params, pool_rows, page_rows,
             v_off = spec.offset + (spec.n_layers + li) * hkd
             row_buf[:, k_off:k_off + hkd] = kd.reshape(b, hkd)
             row_buf[:, v_off:v_off + hkd] = vd.reshape(b, hkd)
-    # ONE append per step: the token's whole row lands in its page
+    # ONE append per step: the token's whole row (both stacks' segments
+    # in the moe family) lands in its page
     ar = torch.arange(b, device=pool_rows.device)
     flat_idx = (page_rows[ar, (lengths // chunk).long()] * chunk
                 + lengths % chunk).to(torch.int32)
@@ -240,9 +271,11 @@ def prefill(cfg: ArchConfig, p: Params, batch, cache_len: int,
         return x, r
 
     r = None
-    if fam in ("dense", "vlm"):
-        for li, layer in enumerate(p["layers"]):
-            x, r = attn_layer(layer, x, r, cache["k"][li], cache["v"][li])
+    if fam in ATTN_FAMILIES:
+        for spec in pool_layout(cfg):
+            ck, cv = spec.cache_keys
+            for li, layer in enumerate(p[spec.params_key]):
+                x, r = attn_layer(layer, x, r, cache[ck][li], cache[cv][li])
     elif fam == "ssm":
         x, r = ssm_layers(p["layers"], x, r, 0)
     else:                                           # hybrid
@@ -262,8 +295,8 @@ def prefill_suffix(cfg: ArchConfig, p: Params, batch, cache: Cache,
     ``batch["tokens"]`` carries only the suffix."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
-            f"prefix-KV suffix prefill supports the dense family, not "
-            f"{cfg.family!r}")
+            f"prefix-KV suffix prefill supports the attention-cache "
+            f"families, not {cfg.family!r}")
     x = _embed(cfg, p, batch)
     b, s, _ = x.shape
     positions = (prefix_len + torch.arange(

@@ -1,10 +1,14 @@
-"""Model assembly for the dense/vlm, ssm and hybrid families (the port of
-``repro.models.transformer``).
+"""Model assembly for the dense/vlm, moe, ssm and hybrid families (the port
+of ``repro.models.transformer``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,),
 ``lm_head`` (D, V) unless tied, and per family
   * dense/vlm: ``layers`` -- a list with one dict per layer (``attn``
     {wq, wk, wv, wo, norm}, ``mlp`` {w_gate, w_up, w_down}, ``mlp_norm``);
+  * moe: ``layers`` -- the moe layers (``attn``, ``moe`` {router, w_gate,
+    w_up, w_down, shared?, residual?}, ``mlp_norm``) -- and, where the
+    config has leading dense layers (kimi), ``dense_layers`` laid out as
+    the dense family's, run first;
   * ssm: ``layers`` -- a list of ``{"ssm": {...}}`` Mamba2 blocks;
   * hybrid (zamba2): ``groups`` -- ``n_layers // attn_every`` lists of
     ``attn_every`` Mamba2 blocks each -- and ``shared``, ONE attention +
@@ -25,13 +29,16 @@ from ..configs.base import ArchConfig
 from .attention import attend, decode_attention
 from .layers import (add_rmsnorm, apply_rope, dense_init, rmsnorm, swiglu,
                      swiglu_init)
+from .moe import moe_apply, moe_init
 from .ssm import ssm_block, ssm_init
 
 Params = Dict[str, Any]
 
 DENSE_FAMILIES = ("dense", "vlm")
+# families whose layers are all attention + MLP (or MoE) blocks
+ATTN_FAMILIES = DENSE_FAMILIES + ("moe",)
 # families whose params, forward, prefill and dense-cache decode are ported
-PORTED_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -186,13 +193,20 @@ def _mlp_layer_init(generator, cfg, dtype, d_ff):
                                    device=generator.device)}
 
 
+def _moe_layer_init(generator, cfg, dtype):
+    return {"attn": attn_init(generator, cfg, dtype),
+            "moe": moe_init(generator, cfg, dtype),
+            "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                   device=generator.device)}
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.bfloat16) -> Params:
     """Random weights from ``generator``, on the generator's device (the
     same shapes and scales as the JAX package's ``init_params``)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense, ssm and hybrid families; "
+            f"the port serves the dense, moe, ssm and hybrid families; "
             f"{cfg.family!r} is not ported yet")
     p: Params = {
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
@@ -205,6 +219,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if cfg.family in DENSE_FAMILIES:
         p["layers"] = [_mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
                        for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        p["layers"] = [_moe_layer_init(generator, cfg, dtype)
+                       for _ in range(cfg.n_layers - cfg.first_dense_layers)]
+        if cfg.first_dense_layers:
+            dff = cfg.d_ff or cfg.d_ff_expert * max(1, cfg.top_k)
+            p["dense_layers"] = [
+                _mlp_layer_init(generator, cfg, dtype, dff)
+                for _ in range(cfg.first_dense_layers)]
     elif cfg.family == "ssm":
         p["layers"] = [{"ssm": ssm_init(generator, cfg, dtype)}
                        for _ in range(cfg.n_layers)]
@@ -251,8 +273,8 @@ def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
     r = None         # the last sublayer's output, not yet added to x
-    if cfg.family in DENSE_FAMILIES:
-        for layer in p["layers"]:
+    if cfg.family in ATTN_FAMILIES:
+        for layer in attn_layers(p):
             x, r = _dense_layer_fwd(cfg, layer, x, r, positions)
     elif cfg.family == "ssm":
         for layer in p["layers"]:
@@ -285,9 +307,16 @@ def residual_norm(x, r, w, eps: float):
     return add_rmsnorm(x, r, w, eps)
 
 
+def attn_layers(p):
+    """The attention-family layers in forward order: the moe family's
+    leading dense layers (``dense_layers``, where there are any), then
+    ``layers``."""
+    return list(p.get("dense_layers", ())) + list(p["layers"])
+
+
 def _dense_layer_fwd(cfg, layer, x, r, positions):
-    """One dense layer over the residual stream x + r; returns the stream
-    and the MLP's output, pending."""
+    """One dense or moe layer over the residual stream x + r; returns the
+    stream and the MLP's (or MoE's) output, pending."""
     x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
     return _mlp_after(cfg, layer, x, attn_apply(layer["attn"], cfg, xn,
                                                 positions))
@@ -295,9 +324,12 @@ def _dense_layer_fwd(cfg, layer, x, r, positions):
 
 def _mlp_after(cfg, layer, x, y):
     """The layer body after attention: h = x + y (y the attention output)
-    and its norm in one call, then the MLP.  Returns (h, swiglu(rmsnorm(h)))
-    -- the MLP's output pending, for the next norm to add."""
+    and its norm in one call, then the MLP -- or, in a moe layer, the
+    MoE.  Returns (h, swiglu(rmsnorm(h))) -- the MLP's output pending, for
+    the next norm to add."""
     h, xn = add_rmsnorm(x, y, layer["mlp_norm"], cfg.norm_eps)
+    if "moe" in layer:
+        return h, moe_apply(layer["moe"], cfg, xn)
     return h, swiglu(layer["mlp"], xn)
 
 

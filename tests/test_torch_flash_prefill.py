@@ -223,7 +223,7 @@ def test_cuda_flash_prefill_reads_cache_views_and_masks_dead_rows(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 112, 128])
 @pytest.mark.parametrize("g", [1, 8])
 @pytest.mark.parametrize("sq,skv,q_offset,kv_len", [
     (200, 200, 0, None),         # Sq * G not a multiple of 128 at G = 1

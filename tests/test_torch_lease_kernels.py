@@ -90,6 +90,16 @@ def test_write_advance(n, pts):
         np.testing.assert_array_equal(o.numpy(), g.numpy())
 
 
+@pytest.mark.parametrize("pts", [-3, 0, 55])
+def test_write_advance_takes_an_empty_table(pts):
+    """K2's plain version at N = 0, as K1's: ts = max(pts, 0) (the max
+    over no entry is its identity, -1), and empty tables back."""
+    e = torch.zeros(0, dtype=torch.int32)
+    new_wts, new_rts, ts = K.write_advance(e, e, e, pts)
+    assert new_wts.shape == new_rts.shape == (0,)
+    assert ts.dtype == torch.int32 and int(ts) == max(pts, 0)
+
+
 @pytest.mark.parametrize("n", [7, 1000])
 @pytest.mark.parametrize("pts,lease", [(0, 10), (1000, 64)])
 def test_lease_check(n, pts, lease):
@@ -236,14 +246,51 @@ def test_cuda_lease_pass_holds_at_most_64_groups(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [7, 4608])
-def test_cuda_write_advance_matches_plain(cuda, n):
-    rng, wts, rts, _r, _l = _tables(n, n)
+@pytest.mark.parametrize("n", [0, 7, 4608, 9000, 30000, 70000])
+@pytest.mark.parametrize("masked", ["random", "none", "all"])
+def test_cuda_write_advance_matches_plain(cuda, n, masked):
+    """K2 in one launch, no output pre-filled: bit for bit at N empty, on
+    one CTA, at the serving table (a cluster of 5 CTAs), on a cluster of
+    8 whose threads hold 2 and 4 entries in registers, and past the
+    cluster's registers (the entries read twice); random masks, no block
+    masked and every block masked.  The outputs start as garbage (a
+    poisoned cache allocation) so a value the kernel never writes
+    shows."""
+    rng, wts, rts, _r, _l = _tables(n, n + len(masked))
+    mask = {"random": rng.integers(0, 2, n), "none": np.zeros(n),
+            "all": np.ones(n)}[masked].astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, mask)]
+    for pts in (-3, 77, 500):
+        torch.full((1 << 18,), -7, dtype=torch.int32, device=cuda)
+        n0 = K.write_advance.launches
+        got = K.write_advance(*args, pts)
+        assert K.write_advance.launches == n0 + 1
+        for g, w in zip(got, R.write_advance_ref(*args, pts)):
+            assert torch.equal(g, w), pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4608, 70000])
+def test_cuda_write_advance_is_one_device_kernel(cuda, n):
+    """One device kernel a call (the parent ran two), read by
+    ``torch.profiler`` through chip_smoke's ``device_kernels``."""
+    import chip_smoke as cs
+    rng, wts, rts, _r, _l = _tables(n, 5)
     mask = rng.integers(0, 2, n).astype(np.int32)
     args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, mask)]
-    for g, w in zip(K.write_advance(*args, 77),
-                    R.write_advance_ref(*args, 77)):
-        assert torch.equal(g, w)
+    per_call = cs.device_kernels(lambda: K.write_advance(*args, 9))
+    assert list(per_call.values()) == [1], per_call
+    assert "write_advance" in next(iter(per_call))
+
+
+def test_write_advance_ctas():
+    """One entry a thread: one CTA up to 1024 entries, the serving table
+    a cluster of 5 CTAs, at most 8."""
+    assert K.write_advance_ctas(0) == K.write_advance_ctas(1024) == 1
+    assert K.write_advance_ctas(1025) == 2
+    assert K.write_advance_ctas(4608) == 5
+    assert K.write_advance_ctas(9000) == K.write_advance_ctas(70000) \
+        == K.MAX_CLUSTER
 
 
 @pytest.mark.cuda

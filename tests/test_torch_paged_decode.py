@@ -199,7 +199,9 @@ def cuda():
     (torch.bfloat16, dict(rtol=3e-2, atol=3e-2))])
 @pytest.mark.parametrize("b,h,hk,d,chunk,nb,p", [
     (3, 6, 2, 16, 4, 8, 3), (2, 4, 4, 128, 8, 16, 4),
-    (8, 32, 4, 64, 16, 64, 32)])
+    (8, 32, 4, 64, 16, 64, 32),
+    # kimi-k2's attention (G 8, Dh 112) and arctic's (G 7, Dh 128)
+    (8, 64, 8, 112, 16, 64, 8), (4, 56, 8, 128, 16, 64, 8)])
 def test_cuda_paged_decode_matches_plain(cuda, dtype, tol, b, h, hk, d,
                                          chunk, nb, p):
     arrs, k_off, v_off = _paged_inputs(b, h, hk, d, chunk, nb, p, 22, 21,

@@ -31,6 +31,7 @@ def kernel_route(monkeypatch):
 
 TINY = reduced(get_arch("tinyllama-1.1b"))
 TINY_ZAMBA2 = reduced(get_arch("zamba2-2.7b"))
+TINY_KIMI = reduced(get_arch("kimi-k2-1t-a32b"))      # two cache stacks
 
 
 def test_norm_check_holds_within_twice_the_cpu_distance():
@@ -89,6 +90,16 @@ def test_phase4_lanes_hold_with_the_cpu_in_the_cards_place(kernel_route):
     assert wave["new_ok"] and wave["new_ratio"] == pytest.approx(1.0)
 
 
+def test_kimi_lane_holds_with_the_cpu_in_the_cards_place(kernel_route):
+    """The moe paged lane (kimi's dense and moe cache stacks side by side
+    in the pool's token rows): counters, the retired ratio and the norm
+    check hold with the CPU in the card's place."""
+    kimi = cs.phase4_card_vs_cpu("cpu", 0, hold=True, card="cpu",
+                                 cfg=TINY_KIMI, lane="kimi")
+    assert kimi["new_ok"] and kimi["old_ok"]
+    assert kimi["new_ratio"] == pytest.approx(1.0)
+
+
 def test_zamba2_bf16_lane_holds_with_the_cpu_in_the_cards_place(
         kernel_route):
     """zamba2's lanes: the fp32 one held as before, the bf16 one
@@ -106,10 +117,12 @@ def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
     memo = {}
     for lane in cs.MUTANTS[mutant]:
         kw = dict(hold=False, memo=memo, card="cpu")
-        if lane == "paged":
-            clean = cs.phase4_card_vs_cpu("cpu", 1, cfg=TINY, **kw)
+        if lane in ("paged", "kimi"):
+            pkw = dict(kw, cfg=TINY if lane == "paged" else TINY_KIMI,
+                       lane=lane)
+            clean = cs.phase4_card_vs_cpu("cpu", 1, **pkw)
             with cs.inject(mutant):
-                bad = cs.phase4_card_vs_cpu("cpu", 1, cfg=TINY, **kw)
+                bad = cs.phase4_card_vs_cpu("cpu", 1, **pkw)
         else:
             arch, cfg = (("tinyllama-1.1b", TINY) if lane == "wave"
                          else ("zamba2-2.7b", TINY_ZAMBA2))
@@ -125,7 +138,8 @@ def test_each_injected_off_by_one_fails_the_check(kernel_route, mutant):
 def test_phase4_mutants_mode_misses_nothing(kernel_route):
     assert cs.phase4_mutants("cpu", [2], card="cpu",
                              cfgs={"paged": TINY, "wave": TINY,
-                                   "zamba2": TINY_ZAMBA2}) == []
+                                   "zamba2": TINY_ZAMBA2,
+                                   "kimi": TINY_KIMI}) == []
 
 
 def test_inject_restores_the_wrapper():

@@ -22,6 +22,7 @@ from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.core import CoherencePolicy as TPolicy
+from repro_torch.models import init_params as init_params_t
 from repro_torch.runtime import MultiHostServingCluster
 from repro_torch.runtime import Request as TRequest
 from repro_torch.runtime import ServingCluster as TCluster
@@ -143,8 +144,12 @@ def test_entry_points_default_to_the_card_and_refuse_unported_paths():
     # the dense-cache wave (DecodeReplica.serve) is ported since; an empty
     # wave comes back as it went in
     assert tc.replicas[0].serve([]) == []
+    # still unported: multi-host serving, prefill-pod ticks and the
+    # encdec family (the moe family serves paged since its slice)
+    whisper = t_reduced(t_get_arch("whisper-large-v3"))
     for call in (lambda: tc.attach_directory(None, 0),
                  lambda: tc.prefill_only_tick(None, 0),
-                 lambda: MultiHostServingCluster(tcfg, lambda: tparams)):
+                 lambda: MultiHostServingCluster(tcfg, lambda: tparams),
+                 lambda: init_params_t(whisper, torch.Generator())):
         with pytest.raises(NotImplementedError):
             call()
