@@ -30,6 +30,19 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels printed; then the path again, warm, timed plain and then
      under ``torch.profiler`` (device busy/idle share, time by kernel and
      kind, host time by operator);
+     then multi-host serving (``MultiHostServingCluster``: hosts in one
+     process ticked in lockstep over one sharded lease directory whose
+     tables and home pages sit on the card) at the same width and depth,
+     every host on the paged path's pool and the same weight tensors: fleet
+     A (2 mixed hosts, 2 shards; requests 0-3 on host 0, then 4-7 on host
+     1) and fleet B (prefill, decode, decode; 4 shards; routed), each with
+     the launch counts set to 0 before and read after (K1-K4, K6, K8 must
+     launch), zero multicasts and invalidation messages, at most one
+     message pair per remote shard a wave, host 1's prefix from migrated
+     pages (A) and no cold prefill on a decode pod (B), every migrated
+     page bit-identical to its home row, the device syncs a directory
+     wave costs (``torch.cuda.set_sync_debug_mode``), then each warm and
+     then profiled (the card's activity only);
      then the fixed-wave dense-cache path, twice at full width and depth:
      tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
      default metadata-only prefix leases), each with 4 replicas, 4096-slot
@@ -55,7 +68,11 @@ Phases (any failure exits non-zero; nothing is caught):
      widened, on the CPU) fed the anchor's greedy tokens through the
      prefill and 4 decode steps, and at every step the card's logits at
      most 2x as far (L2) from the anchor as the CPU's, plus 1e-3 of the
-     anchor's norm (``norm_check``); then the wave path the same way --
+     anchor's norm (``norm_check``); fleet A at full width and 2 layers
+     on the card and on the CPU, every integer counter of its report (the
+     directory's ``xhost_*`` ledger and the per-host columns) identical,
+     greedy agreement and the first ticks' ratio printed; then the wave
+     path the same way --
      tinyllama at 2 layers in bf16 and zamba2 at 6 layers (one group) in
      fp32 weights (its bf16 arithmetic is chaotic; the bf16 run's distance
      is printed; its first decode step held to the bf16 tolerance) and,
@@ -110,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1096,6 +1114,194 @@ def phase3_main_path(smi):
     return counts, variants, n_tok / dt
 
 
+# Multi-host serving: the JAX package's model of a fleet -- K hosts, each a
+# ServingCluster with the paged path's pool (4096 + 512 blocks of 16
+# tokens), ticked in lockstep in one process and sharing one sharded lease
+# directory whose tables and home pages sit on the card beside them.
+# Fleet A is symmetric: 2 mixed hosts over 2 shards, requests 0-3 pinned
+# to host 0 and then 4-7 to host 1 (as ``launch/serve.py`` runs it); fleet
+# B is disaggregated: a prefill pod and two decode pods over 4 shards
+# (shard 3 on host 0), every request routed.
+FLEETS = {"A": dict(n_hosts=2, n_shards=2),
+          "B": dict(n_hosts=3, n_shards=4,
+                    roles=("prefill", "decode", "decode"))}
+
+
+def _serve_fleet(cfg, params, dev, fleet, n_prefix_blocks=4096,
+                 n_decode_pages=512, trace=False, seed=SEED,
+                 on_build=None):
+    """One serving run of fleet ``fleet`` (a key of ``FLEETS``) over the
+    smoke's requests, the directory on the device backend; ``on_build``
+    sees the fleet before it serves.  Returns (fleet, done, report,
+    seconds); on the card the time ends in a device synchronise."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import MultiHostServingCluster, Request
+    kw = dict(FLEETS[fleet])
+    roles = kw.pop("roles", None)
+    mh = MultiHostServingCluster(
+        cfg, lambda: params, n_replicas=2, prefix_block_tokens=16,
+        n_prefix_blocks=n_prefix_blocks, n_decode_pages=n_decode_pages,
+        max_pages=32, device=dev, dir_backend="device",
+        roles=None if roles is None else list(roles), **kw)
+    if trace:
+        for host in mh.hosts:
+            host.trace = []
+    if on_build is not None:
+        on_build(mh)
+    reqs = _requests(Request, np, cfg.vocab, seed=seed)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if roles is None:
+        half = len(reqs) // 2
+        mh.run(reqs[:half], affinity=[0] * half)
+        _, report = mh.run(reqs[half:], affinity=[1] * (len(reqs) - half))
+    else:
+        _, report = mh.run(reqs)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return mh, reqs, report, time.perf_counter() - t0
+
+
+def check_fleet(fleet, mh, done, report):
+    """The fleet's contract: every request served, no multicast and no
+    invalidation message, at most one message pair per remote shard a
+    wave; fleet A's host 1 served the prefix from migrated pages, fleet
+    B's decode pods never prefilled a cold prefix; and every page a host
+    took by migration bit-identical to its owner shard's home row.
+    Returns the pages compared."""
+    import torch
+    vocab = mh.hosts[0].cfg.vocab
+    assert all(r.done and len(r.output) == r.max_new for r in done)
+    assert all(0 <= int(t) < vocab for r in done for t in r.output)
+    dirx = mh.directory
+    assert report["xhost_multicasts"] == 0, report["xhost_multicasts"]
+    assert report["xhost_invalidation_msgs"] == 0
+    assert dirx.max_msgs_per_wave() <= 2 * (dirx.n_shards - 1), \
+        f"fleet {fleet}: {dirx.max_msgs_per_wave()} messages in one wave"
+    if fleet == "A":
+        assert report["host1_xhost_pages_fetched"] > 0
+        assert report["host1_prefix_prefill_tokens_skipped"] > 0
+    else:
+        for h, role in enumerate(FLEETS[fleet]["roles"]):
+            if role == "decode":
+                assert report[f"host{h}_role_cold_prefills"] == 0, h
+        assert report["router_handoffs"] > 0
+    n_pages = 0
+    for h, host in enumerate(mh.hosts):
+        for bid in sorted(host._migrated):
+            assert dirx.home_ok(bid) and host._tags[bid] == dirx.tags[bid]
+            mine = host.prefix_engine._kv_pool[bid]
+            home = dirx.home_rows(bid)
+            assert mine.device == home.device
+            assert torch.equal(mine.view(torch.uint8),
+                               home.view(torch.uint8)), \
+                f"fleet {fleet}: host {h}'s migrated page {bid} differs " \
+                f"from its home row"
+            n_pages += 1
+    assert n_pages > 0, f"fleet {fleet}: no page migrated"
+    return n_pages
+
+
+def count_wave_syncs(tally):
+    """An ``on_build`` hook: every directory wave of the fleet runs under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and appends to ``tally``
+    the synchronising operations it made (the host reads of K1's and K2's
+    results)."""
+    import warnings
+
+    import torch
+
+    def hook(mh):
+        dirx = mh.directory
+        wave = dirx.wave
+
+        def counted(*a, **k):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = wave(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            tally.append(sum("synchroniz" in str(w.message)
+                             for w in caught))
+            return out
+        dirx.wave = counted
+    return hook
+
+
+def phase3_multi_host(smi):
+    """Fleets A and B at full width and depth (tinyllama-1.1b, bf16
+    weights from seed 0, every host sharing the same weight tensors), the
+    directory on the card: per fleet the launch counts set to 0 just
+    before its run and read just after (K1-K4, K6 and K8 must launch),
+    ``check_fleet``, the device syncs a directory wave costs, the
+    directory's report, then the fleet again warm and timed, and once
+    more under ``torch.profiler`` (the card's activity).  Returns {fleet:
+    launch counts}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params
+    cfg = get_arch("tinyllama-1.1b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16)
+    out = {}
+    for fleet, kw in FLEETS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = []
+        reset_launch_counts()
+        mh, done, report, dt = _serve_fleet(
+            cfg, params, "cuda", fleet, on_build=count_wave_syncs(syncs))
+        counts = launch_counts()
+        variants = variant_counts()
+        n_tok = sum(len(r.output) for r in done)
+        n_pages = check_fleet(fleet, mh, done, report)
+        label = (f"fleet {fleet} ({kw['n_hosts']} hosts"
+                 + (f" {','.join(kw['roles'])}" if "roles" in kw else
+                    " mixed") + f", {kw['n_shards']} shards)")
+        log(f"multi-host {label} on {smi}: tinyllama-1.1b full width "
+            f"({cfg.n_layers} layers), {len(done)} requests served, "
+            f"{n_tok} tokens in {dt:.2f} s = {n_tok / dt:.1f} tokens/s; "
+            f"{n_pages} migrated pages bit-identical to their home rows; "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"directory report ({label}) on {smi}: "
+            + json.dumps(mh.directory.report()))
+        log(f"coherence_report ({label}) on {smi}: " + json.dumps(
+            {k: (int(v) if isinstance(v, (int, np.integer)) else v)
+             for k, v in report.items()}))
+        log(f"device syncs a directory wave ({label}): "
+            f"{sum(syncs)} over {len(syncs)} waves, mean "
+            f"{sum(syncs) / max(1, len(syncs)):.2f}, max {max(syncs)}")
+        log(f"launches on {label}: {counts}")
+        log(f"launches by variant on {label}: {variants}")
+        missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
+        assert not missing, f"kernels never launched on {label}: {missing}"
+        out[fleet] = counts
+        del mh
+        gc.collect()               # the sync hook made a reference cycle
+
+        def serve(fleet=fleet):
+            return _serve_fleet(cfg, params, "cuda", fleet)
+
+        _mh, done, _r, dt = serve()
+        log(f"warm multi-host {label} on {smi}: {n_tok} tokens in "
+            f"{dt:.3f} s = {n_tok / dt:.1f} tokens/s (no profiler)")
+        del _mh
+        # the card's activity only: tracing the host's ~80000 launches
+        # too would cost the script ~40 s a fleet
+        profile_path(f"multi-host {label}", serve, smi, with_host=False)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # The fixed-wave dense-cache path: (arch, ServingCluster kwargs)
 WAVE_PATHS = (("tinyllama-1.1b", dict(prefix_reuse=False)),
               ("zamba2-2.7b", {}))
@@ -1603,6 +1809,54 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
     return dict(old_ratio=ratio, old_ok=not bad and ratio <= 1, **new)
 
 
+def phase4_fleet_card_vs_cpu(smi, seed=SEED, hold=True, card="cuda",
+                             cfg=None):
+    """Fleet A (``FLEETS``) at full width and 2 layers (or ``cfg``), bf16
+    weights, on the card and on the CPU (the plain versions, by the
+    explicit device="cpu"): every integer counter of the fleet's
+    ``coherence_report`` -- the directory's ``xhost_*`` ledger and each
+    ``host{h}_*`` column included -- identical (held); greedy agreement
+    and the retired check's ratio over each host's first decode tick
+    printed.  Returns the readings."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
+    params = _phase4_params(cfg, seed)
+
+    def serve(dev):
+        mh, done, report, dt = _serve_fleet(
+            cfg, _cast(params, device=dev), dev, "A", 256, 128, trace=True,
+            seed=seed)
+        return done, report, [h.trace for h in mh.hosts], dt
+
+    dg, rg, tg, sg = serve(card)
+    dc, rc, tc, sc = serve("cpu")
+    ints, bad = _counters(rg, rc)
+    assert not hold or not bad, \
+        f"fleet counters differ card vs cpu: {bad}"
+    assert not hold or rg["xhost_migrations"] > 0
+    ratio = 0.0
+    for hg, hc in zip(tg, tc):
+        first_g = next(e for e in hg if e["ev"] == "tick")
+        first_c = next(e for e in hc if e["ev"] == "tick")
+        d = np.abs(first_g["logits"] - first_c["logits"])
+        ratio = max(ratio, float((d / (BF16["atol"] + BF16["rtol"]
+                                       * np.abs(first_c["logits"]))).max()))
+    same = sum(int(a == b) for x, y in zip(dg, dc)
+               for a, b in zip(x.output, y.output))
+    total = sum(len(x.output) for x in dg)
+    log(f"fleet A card vs cpu ({smi}; seed {seed}; full width, "
+        f"{cfg.n_layers} layers): {len(ints) - len(bad)} of {len(ints)} "
+        f"integer counters identical ({rg['xhost_msgs']} cross-host "
+        f"messages, {rg['xhost_migrations']} pages migrated); retired "
+        f"check: first-tick logits worst {ratio:.3f} of 3e-2 + 3e-2 |v| "
+        f"(printed); greedy tokens agree {same}/{total}; card {sg:.2f} s, "
+        f"cpu {sc:.2f} s")
+    return dict(counters_ok=not bad, old_ratio=ratio, agree=same,
+                tokens=total)
+
+
 def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True, memo=None,
                             card="cuda", archs=None, cfgs=None):
     """The wave path on the card and on the CPU: tinyllama at 2 layers
@@ -1871,12 +2125,16 @@ def main() -> int:
     stamp("phase 2")
     counts, variants, _tps = phase3_main_path(smi)
     stamp("phase 3 (paged path)")
+    phase3_multi_host(smi)
+    stamp("phase 3 (multi-host fleets)")
     wave_counts = phase3_wave_paths(smi)
     stamp("phase 3 (wave paths)")
     kimi_counts = phase3_kimi_path(smi)
     stamp("phase 3 (kimi-k2 paged path)")
     phase4_card_vs_cpu(smi)
     stamp("phase 4 (paged path)")
+    phase4_fleet_card_vs_cpu(smi)
+    stamp("phase 4 (fleet A lane)")
     phase4_card_vs_cpu(smi, lane="kimi")
     stamp("phase 4 (kimi-k2 paged lane)")
     phase4_wave_card_vs_cpu(smi)

@@ -1,7 +1,8 @@
 """Runtime lease sanitizer: vectorized invariants after every engine op.
 
-The port of ``repro.analysis.sanitize.LeaseSanitizer`` (the multi-host
-``MigrationSanitizer`` comes with the multi-host slice).
+The port of ``repro.analysis.sanitize``: :class:`LeaseSanitizer` checks
+one engine, :class:`MigrationSanitizer` the sharded directory's page
+migration and write-behind publishes (``sanitize.py:204-283``).
 
 Enabled with ``TARDIS_SANITIZE=1`` or ``LeaseEngine(sanitize=True)``.  The
 engine calls :meth:`LeaseSanitizer.after` at the end of every mutating
@@ -202,3 +203,85 @@ class LeaseSanitizer:
 
     def _fail(self, op, message):
         raise SanitizeError(f"TARDIS_SANITIZE[{op}]: {message}")
+
+
+class MigrationSanitizer:
+    """Invariant checks for cross-host page migration and write-behind
+    publishing (:class:`repro_torch.core.shard_directory
+    .ShardedLeaseDirectory`).
+
+    Three classes of bug it turns into hard failures:
+
+      * **double publish** -- the same host queues the identical
+        ``(gid, tag, version)`` payload twice without a flush in between
+        (two hosts racing to repair the same block is NOT a bug: the
+        owner installs the first and drops the second by version),
+      * **tampered carry** -- a migrated page must arrive under exactly
+        the ``(wts, rts)`` lease the same wave's read extended and the
+        directory's current content tag,
+      * **use-after-migrate** -- a borrower serving a locally installed
+        migrated page after the block was re-tagged underneath it.
+    """
+
+    def __init__(self):
+        self.checks = 0
+        self._pending = set()       # (host, gid, tag, wver) queued un-flushed
+        self._installed = {}        # (host, gid) -> tag installed locally
+
+    # -- write-behind publishes ---------------------------------------------
+
+    def on_defer(self, host: int, gid: int, tag: int, wver: int) -> None:
+        key = (int(host), int(gid), int(tag), int(wver))
+        if key in self._pending:
+            raise SanitizeError(
+                f"TARDIS_SANITIZE[migrate]: double publish: host {host} "
+                f"queued gid {gid} (tag {tag}, version {wver}) twice "
+                f"without a flush")
+        self._pending.add(key)
+        self.checks += 1
+
+    def on_flush(self, host: int, gid: int, tag: int, wver: int) -> None:
+        self._pending.discard((int(host), int(gid), int(tag), int(wver)))
+        self.checks += 1
+
+    # -- migration carries ---------------------------------------------------
+
+    def check_carried(self, page, lease, dir_tag: int) -> None:
+        """``page`` is a FetchedPage; ``lease`` the (wts, rts) this wave's
+        read returned for the gid; ``dir_tag`` the directory's current
+        content tag."""
+        w, r = int(lease[0]), int(lease[1])
+        if (int(page.wts), int(page.rts)) != (w, r):
+            raise SanitizeError(
+                f"TARDIS_SANITIZE[migrate]: gid {page.gid} migrated under "
+                f"(wts={page.wts}, rts={page.rts}) but the wave's lease is "
+                f"({w}, {r})")
+        if int(page.tag) != int(dir_tag):
+            raise SanitizeError(
+                f"TARDIS_SANITIZE[migrate]: gid {page.gid} migrated with "
+                f"content tag {page.tag} != directory tag {dir_tag}")
+        self.checks += 1
+
+    # -- borrower-side installed copies --------------------------------------
+
+    def mark_installed(self, host: int, gid: int, tag: int) -> None:
+        self._installed[(int(host), int(gid))] = int(tag)
+        self.checks += 1
+
+    def on_invalidate(self, host: int, gid: int) -> None:
+        self._installed.pop((int(host), int(gid)), None)
+        self.checks += 1
+
+    def on_use(self, host: int, gid: int, dir_tag: int) -> None:
+        """A host is about to serve from its installed migrated copy."""
+        got = self._installed.get((int(host), int(gid)))
+        if got is None:
+            raise SanitizeError(
+                f"TARDIS_SANITIZE[migrate]: host {host} used gid {gid} "
+                f"which was never installed (or already invalidated)")
+        if got != int(dir_tag):
+            raise SanitizeError(
+                f"TARDIS_SANITIZE[migrate]: use-after-migrate: host {host} "
+                f"serving gid {gid} tagged {got} but the directory moved "
+                f"to {dir_tag}")
+        self.checks += 1

@@ -21,8 +21,8 @@ Paged KV pool(s): with ``kv_block_shape`` (serving: ``(chunk, 2,
 L*kv_heads, head_dim)``) or named ``kv_pools`` the engine owns an
 ``(n_blocks, chunk * token_row)`` pool; each token row interleaves every
 stack's lane-padded segment, so one block id leases every stack's payload.
-``write_kv`` is a plain indexed store, ``read_kv`` gathers through K3,
-``append_kv`` scatters token rows through K3 in place, and
+``write_kv`` scatters whole block rows and ``append_kv`` token rows
+through K3 in place, ``read_kv`` gathers through K3, and
 ``kv_rows_view`` is the (n_blocks*chunk, token_row) view the paged decode
 step reads and appends to (in place, so ``set_kv_rows`` only keeps the
 ledger).
@@ -289,8 +289,10 @@ class LeaseEngine:
             x, (0, meta["token_row"] - meta["token_elems"]))
 
     def write_kv(self, idx, blocks) -> None:
-        """Publish block payloads into the pool(s): a plain indexed store
-        (it was an XLA scatter, not Pallas, in the JAX package)."""
+        """Publish block payloads into the pool(s): whole block rows
+        through K3's scatter on the device backend (the JAX package stored
+        them with an XLA scatter; the sharded directory's home installs
+        and migrated-page installs are these calls)."""
         idx = _as_np_ids(idx)
         if not idx.size:
             return
@@ -302,7 +304,10 @@ class LeaseEngine:
         flat = torch.cat([self._pack_rows(blocks[name], idx.size, name)
                           for name in self.kv_pools], dim=-1
                          ).reshape(idx.size, self._kv_row)
-        self._kv_pool[self._dev(idx)] = flat
+        if self.backend == "device":
+            lease_ops.append_rows(self._kv_pool, idx, flat)
+        else:
+            self._kv_pool[torch.as_tensor(idx)] = flat
         self._kv_valid[idx] = True
         self.stats.kv_blocks_written += int(idx.size)
         if self._san is not None:

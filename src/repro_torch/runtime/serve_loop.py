@@ -35,9 +35,19 @@ into dense caches and decodes it in lockstep at one scalar position kept
 on the device (:func:`repro_torch.models.decode_step`).  Attention over
 caches of 2048+ slots runs in the split-KV decode kernel K5.
 
-Not ported yet (each raises ``NotImplementedError``): the sharded-directory
-multi-host path (``attach_directory``, ``MultiHostServingCluster``) and the
-prefill-pod ``prefill_only_tick``.
+**Multi-host serving.**  :class:`MultiHostServingCluster` runs K hosts --
+each a full ``ServingCluster`` -- in lockstep against ONE
+:class:`~repro_torch.core.shard_directory.ShardedLeaseDirectory`
+(``attach_directory``): the directory's shards own the prefix region's
+``(wts, rts)`` tables and home pages, a prefix one host prefilled is
+published write-behind and served on another by timestamp-ordered page
+migration (a K3 gather out of the owner's home pool, a K3 scatter into the
+borrower's; the page never leaves the device), and every wave costs at
+most one message pair per remote owner shard, with zero invalidations and
+zero multicasts.  With prefill / decode roles an admission router forwards
+cold prefixes to prefill pods (``prefill_only_tick``) and hands streams
+back to decode pods by publish-then-notify.  All hosts and shards share
+one device (the reference's model of a fleet: ``serve_loop.py:1292-1609``).
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import torch
 
 from ..core.lease_engine import LeaseEngine
 from ..core.policy import CoherencePolicy, resolve_policy
+from ..core.shard_directory import ShardedLeaseDirectory, page_on
 from ..core.store import Replica, TardisStore
 from ..device import DeviceLike, pick_device
 from ..models import (PAGED_FAMILIES, decode_step, decode_step_paged,
@@ -321,16 +332,39 @@ class ServingCluster:
             "role_pages_published": 0, "role_prefill_jobs": 0,
             "role_renewal_msgs": 0, "decode_ticks": 0,
         }
+        # disaggregated serving role: "mixed" (serves everything),
+        # "prefill" (only admits cold prefixes, publishes, never decodes)
+        # or "decode" (never prefills a cold prefix)
         self.role = "mixed"
+        # multi-host mode: with a ShardedLeaseDirectory attached, its
+        # shards own the prefix region's (wts, rts) tables and home
+        # payloads; the local engine keeps this host's payload cache and
+        # decode pages.  Single-host behaviour is unchanged.
+        self.directory = None
+        self.host_id = 0
+        self._migrated: set = set()       # bids installed by page migration
         self.paged = self.prefix_engine.has_kv
 
     def attach_directory(self, directory, host_id: int) -> None:
-        raise NotImplementedError(
-            "multi-host serving (sharded lease directory) is not ported yet")
+        """Join a sharded lease directory as host ``host_id``.
 
-    def prefill_only_tick(self, queue: deque, tick: int) -> List[Request]:
-        raise NotImplementedError(
-            "prefill-pod ticks (disaggregated serving) are not ported yet")
+        The directory must cover exactly this cluster's prefix region with
+        the same pool layout; from here on every prefix lease transition
+        (classification, renewal, miss write, decode renewal) goes through
+        :meth:`ShardedLeaseDirectory.wave` -- at most one message per owner
+        shard per wave -- instead of the local engine's tables.
+        """
+        if not self.paged:
+            raise ValueError("multi-host serving requires a paged family")
+        eng = self.prefix_engine
+        if directory.n_blocks != self.n_prefix_blocks:
+            raise ValueError(
+                f"directory covers {directory.n_blocks} blocks, host has "
+                f"{self.n_prefix_blocks} prefix blocks")
+        if directory.block_bytes != eng.block_bytes:
+            raise ValueError("directory/host block_bytes mismatch")
+        self.directory = directory
+        self.host_id = int(host_id)
 
     def publish_weights(self, params) -> int:
         """Hot-swap: no invalidation broadcast; replicas renew on expiry.
@@ -341,6 +375,12 @@ class ServingCluster:
         if self.prefix_engine.has_kv:
             self.prefix_engine.invalidate_kv(
                 np.arange(self.prefix_engine.n_blocks))
+        if self.directory is not None:
+            msan = self.directory._msan
+            if msan is not None:
+                for bid in self._migrated:
+                    msan.on_invalidate(self.host_id, bid)
+            self._migrated.clear()
         return self.publisher.pts
 
     # -- prefix-KV content addressing ---------------------------------------
@@ -381,6 +421,10 @@ class ServingCluster:
             self.prefix_stats["pinned_relocations"] += 1
         if eng.has_kv:
             eng.invalidate_kv([bid])
+        if self.directory is not None and bid in self._migrated:
+            self._migrated.discard(bid)
+            if self.directory._msan is not None:
+                self.directory._msan.on_invalidate(self.host_id, bid)
         return True
 
     def _lease_prefix_wave(self, rep: DecodeReplica,
@@ -389,6 +433,8 @@ class ServingCluster:
         tick, every request classified against the same table snapshot,
         all renewals in a single ``read_many`` and all misses in at most
         one jump-ahead write over their union."""
+        if self.directory is not None:
+            return self._lease_prefix_wave_dir(rep, prompts)
         rep.kv_pts += 1
         ps = self.prefix_stats
         bt = self.prefix_block_tokens
@@ -461,7 +507,141 @@ class ServingCluster:
                           if b not in miss_writers}
         return WavePlan(groups, covered, miss_writers, repair_writers)
 
+    def _lease_prefix_wave_dir(self, rep: DecodeReplica,
+                               prompts: List[np.ndarray]) -> WavePlan:
+        """Directory-mode prefix leasing: the same wave protocol, but the
+        (wts, rts) truth for the prefix region lives in the sharded
+        directory, so classification runs against the directory's content
+        tags and ALL lease traffic -- renewals, miss re-tags and payload
+        fetches of remotely-prefilled blocks -- resolves in ONE
+        :meth:`ShardedLeaseDirectory.wave` (at most one message per owner
+        shard).  A block whose payload another host published serves this
+        wave by page migration instead of being recomputed: it counts as
+        covered, and `_install_fetched` lands it in the local pool before
+        the admission prefill reads it."""
+        dirx = self.directory
+        eng = self.prefix_engine
+        rep.kv_pts += 1
+        ps = self.prefix_stats
+        bt = self.prefix_block_tokens
+        groups, tags_by_req = [], []
+        for prompt in prompts:
+            bids, tags = self._prefix_blocks_of(prompt)
+            groups.append(bids)
+            tags_by_req.append(tags)
+
+        local_wts: List[int] = []
+        renew_groups: List[List[int]] = [[] for _ in prompts]
+        renew_req: Dict[int, int] = {}
+        write_bids: List[int] = []
+        write_tags: List[int] = []
+        fetch_bids: List[int] = []
+        miss_writers: Dict[int, Tuple[int, int]] = {}
+        repair_writers: Dict[int, Tuple[int, int]] = {}
+        pending_tags: Dict[int, int] = {}    # re-tags queued for this wave
+        covered: List[int] = []
+        for ri, (prompt, bids, tags) in enumerate(
+                zip(prompts, groups, tags_by_req)):
+            run_ok = True                    # still in the leading run
+            c_cov = 0
+            for c, (bid, tag) in enumerate(zip(bids, tags)):
+                eff_tag = pending_tags.get(bid, int(dirx.tags[bid]))
+                if eff_tag == tag:
+                    ps["prefix_block_hits"] += 1
+                    ps["prefix_tokens_reused"] += bt
+                    will_cover = (self._tags[bid] == tag
+                                  and eng.kv_ok(bid))
+                    if not will_cover:
+                        if (run_ok and bid not in pending_tags
+                                and dirx.home_ok(bid)):
+                            # another host prefilled it: migrate the page
+                            if bid not in fetch_bids:
+                                fetch_bids.append(bid)
+                            will_cover = True
+                        elif (bid not in repair_writers
+                              and bid not in miss_writers
+                              and bid not in fetch_bids):
+                            repair_writers[bid] = (ri, c)
+                    ent = rep.kv_leases.get(bid)
+                    cached_ok = ent is not None and ent[2] == tag
+                    if cached_ok and rep.kv_pts <= ent[1]:
+                        ps["prefix_local_hits"] += 1
+                        local_wts.append(ent[0])
+                    else:
+                        renew_groups[ri].append(bid)
+                        if bid not in renew_req:
+                            renew_req[bid] = ent[0] if cached_ok else -1
+                    if run_ok and will_cover:
+                        c_cov += 1
+                    else:
+                        run_ok = False
+                else:
+                    if eff_tag != -1 or self._tags[bid] != -1:
+                        if not self._evict_block(bid):
+                            ps["prefix_evictions_deferred"] += 1
+                            run_ok = False
+                            continue
+                        ps["prefix_evictions"] += 1
+                    ps["prefix_block_misses"] += 1
+                    self._tags[bid] = tag
+                    pending_tags[bid] = tag
+                    write_bids.append(bid)
+                    write_tags.append(tag)
+                    miss_writers[bid] = (ri, c)
+                    run_ok = False
+            covered.append(min(c_cov, (len(prompt) - 1) // bt))
+        if local_wts:                                  # Table II local hits
+            rep.kv_pts = max(rep.kv_pts, max(local_wts))
+        active = [g for g in renew_groups if g]
+        if active or write_bids or fetch_bids or \
+                self.host_id in dirx._pending:
+            res = dirx.wave(self.host_id, rep.kv_pts, read_groups=active,
+                            req_wts=renew_req or None,
+                            write_bids=write_bids, write_tags=write_tags,
+                            fetch_bids=fetch_bids)
+            rep.kv_pts = int(res.new_pts)
+            ps["prefix_renewals"] += sum(
+                1 for w in renew_req.values() if w >= 0)
+            for bid, (w, r) in res.leases.items():
+                rep.kv_leases[bid] = (w, r, int(dirx.tags[bid]))
+            for bid in miss_writers:
+                ts = res.write_ts.get(bid)
+                if ts is not None:
+                    rep.kv_leases[bid] = (ts, ts, int(self._tags[bid]))
+            self._install_fetched(res, rep)
+        repair_writers = {b: rc for b, rc in repair_writers.items()
+                          if b not in miss_writers}
+        return WavePlan(groups, covered, miss_writers, repair_writers)
+
+    def _install_fetched(self, res, rep: DecodeReplica) -> None:
+        """Land migrated pages in the local pool under exactly the carried
+        ``(wts, rts, version)``: the lease the wave's read extended becomes
+        the local cached lease, the content tag carries over, and the slot
+        joins the host's payload cache (evicting-relocating any pinned
+        different-content local copy first).  The page moves device to
+        device (a K3 scatter into this host's pool on the card)."""
+        eng = self.prefix_engine
+        dirx = self.directory
+        wver = rep.reader.cached_version("params")
+        for bid, page in res.fetched.items():
+            if self._tags[bid] not in (-1, page.tag):
+                if not self._evict_block(bid):
+                    continue     # pinned + no free page: skip the install
+            eng.write_kv([bid], page_on(page.blocks, eng.device))
+            self._tags[bid] = page.tag
+            self._pool_wver[bid] = -1 if wver is None else int(wver)
+            rep.kv_leases[bid] = (page.wts, page.rts, page.tag)
+            if self.policy.predictor:
+                # Tardis 2.0: the owner's learned lease travels with the page
+                eng.set_pred_lease([bid], page.pred_lease)
+            self._migrated.add(bid)
+            self.prefix_stats["xhost_pages_fetched"] += 1
+            if dirx._msan is not None:
+                dirx._msan.mark_installed(self.host_id, bid, page.tag)
+
     def _maybe_rebase(self) -> None:
+        if self.directory is not None:
+            return        # the multi-host coordinator drives rebases
         shift = self.prefix_engine.maybe_rebase()
         if shift:
             for rep in self.replicas:
@@ -605,6 +785,12 @@ class ServingCluster:
         last = len(suffix) - 1
         if skip:
             key = tuple(bids[:covered])
+            if self.directory is not None and self.directory._msan is not None:
+                for bid in key:
+                    if bid in self._migrated:   # serving a migrated page:
+                        self.directory._msan.on_use(     # tag must still
+                            self.host_id, bid,           # be current
+                            int(self.directory.tags[bid]))
             if key not in mat_cache:
                 mat_cache[key] = self._pool_to_stack_kv(
                     self._read_kv_stacks(list(key)))
@@ -630,6 +816,20 @@ class ServingCluster:
             eng.write_kv([bid for bid, _ in wb], blocks)
             self._pool_wver[[bid for bid, _ in wb]] = \
                 -1 if wver is None else int(wver)
+            if self.directory is not None:
+                # write-behind home publish: the payload rides the NEXT
+                # wave's request message to the owner shard; a stale
+                # publish (re-tagged first) is dropped owner-side.  Each
+                # payload is a slice of ``blocks``, a fresh stack that no
+                # later prefill writes into, so it needs no copy
+                for i_wb, (bid, _c) in enumerate(wb):
+                    if self.directory.tags[bid] != self._tags[bid]:
+                        continue
+                    self.directory.defer_publish(
+                        self.host_id, bid,
+                        {p: a[i_wb:i_wb + 1] for p, a in blocks.items()})
+                    ps["xhost_pages_published"] += 1
+                    ps["role_pages_published"] += 1
         # page table: covered shared blocks (pinned + leased for the whole
         # decode) then private pages for suffix + decode KV
         total_pages = -(-(plen + req.max_new) // bt)
@@ -664,6 +864,65 @@ class ServingCluster:
             return None
         return stream
 
+    def prefill_only_tick(self, queue: deque, tick: int) -> List[Request]:
+        """One prefill-pod tick: admit up to ``max_batch`` forwarded jobs
+        per replica, run the full prefill over each prompt's block-aligned
+        head, and queue the prefix pages write-behind (the coordinator
+        flushes after the tick, which fires the publish-then-notify wave a
+        waiting decode pod subscribed to).  Nothing decodes here: each job
+        admits as a zero-token SHADOW request over the aligned head, so its
+        pages allocate, publish and free inside the tick, and the caller's
+        Request objects are never touched.  Returns the jobs completed this
+        tick (including pass-throughs too short to have an aligned head).
+        """
+        ps = self.prefix_stats
+        bt = self.prefix_block_tokens
+        done: List[Request] = []
+        for r, rep in enumerate(self.replicas):
+            jobs: List[Request] = []
+            shadows: List[Request] = []
+            budget = self.prefix_engine.free_page_count()
+            while queue and len(jobs) < rep.max_batch:
+                req = queue[0]
+                cut = (len(req.prompt) // bt) * bt
+                if cut == 0:
+                    # no block-aligned head to publish: hand it straight back
+                    done.append(queue.popleft())
+                    continue
+                shadow = Request(req.rid, req.prompt[:cut], max_new=0)
+                need = self._pages_needed(shadow)
+                if need > self.max_pages:
+                    raise ValueError(
+                        f"prefill job {req.rid} needs {need} pages > "
+                        f"max_pages={self.max_pages}")
+                if need > budget:
+                    if not jobs and need > self.n_decode_pages:
+                        raise RuntimeError(
+                            f"prefill job {req.rid} needs {need} pages; "
+                            f"pool has {self.n_decode_pages}")
+                    ps["paged_admission_deferrals"] += 1
+                    break
+                budget -= need
+                jobs.append(queue.popleft())
+                shadows.append(shadow)
+            if not shadows:
+                continue
+            self._admit_reserved = sum(self._pages_needed(s)
+                                       for s in shadows)
+            params = rep.params()
+            wver = rep.reader.cached_version("params")
+            plan = self._lease_prefix_wave(rep, [s.prompt for s in shadows])
+            mat_cache: Dict[Tuple[int, ...], Tuple] = {}
+            for ji, shadow in enumerate(shadows):
+                self._admit_reserved -= self._pages_needed(shadow)
+                s = self._admit_one(rep, shadow, plan, ji, params, wver,
+                                    mat_cache, tick)
+                assert s is None, "max_new=0 shadow must finalize inline"
+            self._admit_reserved = 0
+            ps["role_prefill_jobs"] += len(jobs)
+            done.extend(jobs)
+        return done
+
     def _finalize(self, s: Stream) -> None:
         """A finished request releases everything immediately: pins drop,
         relocated copies refcount down, private pages go back on the free
@@ -693,6 +952,8 @@ class ServingCluster:
         are local hits; expired ones renew (data-less) in ONE batched
         ``read_many``; TSO/RC skip the renewal of a tag-checked read-only
         block."""
+        if self.directory is not None:
+            return self._renew_decode_leases_dir(rep, act)
         expired: Dict[int, int] = {}
         for s in act:
             for bid in s.shared_bids:
@@ -717,6 +978,44 @@ class ServingCluster:
             rep.kv_leases[bid] = (int(res.wts[i]), int(res.rts[i]),
                                   int(self._tags[bid]))
         self.prefix_stats["decode_renewals"] += len(expired)
+
+    def _renew_decode_leases_dir(self, rep: DecodeReplica,
+                                 act: List[Stream]) -> None:
+        """Directory-mode decode renewals: one
+        :meth:`ShardedLeaseDirectory.wave` for every expired lease (<=1
+        message per owner shard, data-less when the cached version
+        matches).  A renewal that comes back with a NEWER version means
+        another host re-tagged the block underneath this decode: the local
+        copy keeps serving its bits as a frozen private copy, so the cached
+        lease is dropped rather than refreshed."""
+        dirx = self.directory
+        ps = self.prefix_stats
+        expired: Dict[int, int] = {}
+        for s in act:
+            for bid in s.shared_bids:
+                ent = rep.kv_leases.get(bid)
+                if ent is None or ent[2] != int(dirx.tags[bid]):
+                    continue          # re-tagged/migrated: private copy
+                if rep.kv_pts <= ent[1]:
+                    ps["prefix_local_hits"] += 1
+                    ps["decode_local_hits"] += 1
+                    rep.kv_pts = max(rep.kv_pts, ent[0])   # Table I load
+                elif self.policy.skip_expired_renewal():
+                    ps["decode_renewals_skipped"] += 1
+                elif bid not in expired:
+                    expired[bid] = ent[0]
+        if not expired:
+            return
+        res = dirx.wave(self.host_id, rep.kv_pts,
+                        read_groups=[list(expired)], req_wts=expired)
+        rep.kv_pts = int(res.new_pts)
+        ps["role_renewal_msgs"] += res.msgs
+        for bid, (w, r) in res.leases.items():
+            if w == expired.get(bid, w):
+                rep.kv_leases[bid] = (w, r, int(dirx.tags[bid]))
+            else:
+                rep.kv_leases.pop(bid, None)   # superseded: private copy
+        ps["decode_renewals"] += len(expired)
 
     def _decode_tick(self, rep: DecodeReplica, act: List[Stream],
                      tick: int) -> None:
@@ -772,7 +1071,8 @@ class ServingCluster:
 
     def _paged_tick(self, queues: List[deque], tick: int) -> None:
         """One scheduler tick: admissions then decode steps on every
-        replica, then the rebase guard."""
+        replica, then the rebase guard.  The multi-host coordinator calls
+        this per host to run K clusters in lockstep."""
         for r, rep in enumerate(self.replicas):
             self._admit(r, rep, queues[r], self._active[r], tick)
         for r, rep in enumerate(self.replicas):
@@ -867,10 +1167,321 @@ class ServingCluster:
 
 
 class MultiHostServingCluster:
-    """K serving hosts sharing one sharded lease directory: not ported in
-    this slice."""
+    """K serving hosts sharing ONE sharded lease directory.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiHostServingCluster (sharded lease directory) is not "
-            "ported yet")
+    Each host is a full :class:`ServingCluster` (replicas, local payload
+    cache, decode pages, its own weight store -- weight publishes sweep
+    every host, so version sequences align); the
+    :class:`~repro_torch.core.shard_directory.ShardedLeaseDirectory` owns
+    the prefix region's ``(wts, rts)`` tables and home KV pages, hashed
+    across owner shards.  A prefix prefilled on host 0 is published
+    write-behind to its home shards and served on host K-1 by
+    timestamp-ordered page migration -- suffix-only prefill, no
+    recomputation -- with each wave's cross-host lease traffic batched
+    into at most one message per owner shard and ZERO invalidations or
+    multicasts.  Hosts tick in lockstep and the coordinator drives one
+    uniform timestamp rebase across every shard and replica.
+
+    Every host and every shard sits on ``device`` (default: the card;
+    ``device="cpu"`` runs the plain versions).  ``dir_backend`` defaults
+    to ``"device"``, which keeps the directory's tables and home pages on
+    that device and runs its shards' lease passes, writes and page moves
+    in K1-K3; ``"numpy"`` is the host mirror.  (The reference's default
+    is ``"numpy"``; both are bit-identical by its own tests.)
+    """
+
+    ROLES = ("prefill", "decode", "mixed")
+
+    def __init__(self, cfg, init_params_fn: Callable[[], Any],
+                 n_hosts: int = 2, n_shards: Optional[int] = None,
+                 dir_backend: str = "device",
+                 sanitize: Optional[bool] = None,
+                 roles: Optional[List[str]] = None,
+                 spill_depth: int = 4, device: DeviceLike = None, **kw):
+        if n_hosts < 1:
+            raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
+        if roles is None:
+            roles = ["mixed"] * n_hosts
+        roles = [str(r) for r in roles]
+        if len(roles) != n_hosts:
+            raise ValueError(
+                f"roles has {len(roles)} entries for {n_hosts} hosts")
+        bad = sorted(set(roles) - set(self.ROLES))
+        if bad:
+            raise ValueError(
+                f"unknown roles {bad}; each must be one of {self.ROLES}")
+        if "decode" in roles and not any(
+                r in ("prefill", "mixed") for r in roles):
+            raise ValueError(
+                "decode pods need at least one prefill or mixed host to "
+                "forward cold prefixes to")
+        if "prefill" in roles and not any(
+                r in ("decode", "mixed") for r in roles):
+            raise ValueError(
+                "prefill pods need at least one decode or mixed host to "
+                "hand streams back to")
+        self.device = pick_device(device)
+        self.roles = roles
+        self.spill_depth = int(spill_depth)
+        # how many routed ticks a forwarded stream may wait on its
+        # publish-then-notify wake before the decode pod force-admits it
+        # (a dropped publish then surfaces as a ledgered cold prefill
+        # instead of a hang)
+        self.handoff_patience = 16
+        self.hosts = [ServingCluster(cfg, init_params_fn,
+                                     sanitize=sanitize, device=self.device,
+                                     **kw)
+                      for _ in range(n_hosts)]
+        for host, role in zip(self.hosts, roles):
+            host.role = role
+        # cold-prefix work chain-hashes onto pure prefill pods; a fleet
+        # with no pure prefill pod prefills on the mixed hosts
+        self._prefill_pool = ([h for h, r in enumerate(roles)
+                               if r == "prefill"]
+                              or [h for h, r in enumerate(roles)
+                                  if r == "mixed"])
+        self._route_stats = {
+            "router_warm_direct": 0, "router_cold_forwards": 0,
+            "router_spills": 0, "router_handoffs": 0,
+            "router_forced_admissions": 0,
+        }
+        h0 = self.hosts[0]
+        if not h0.paged:
+            raise ValueError(
+                "multi-host serving requires a paged family (dense/vlm/moe)")
+        eng = h0.prefix_engine
+        self.directory = ShardedLeaseDirectory(
+            h0.n_prefix_blocks, int(n_shards or n_hosts), n_hosts=n_hosts,
+            policy=h0.policy, backend=dir_backend,
+            block_bytes=eng.block_bytes, kv_pools=eng.kv_pools,
+            kv_dtype=eng.kv_dtype, sanitize=sanitize, device=self.device)
+        for h, host in enumerate(self.hosts):
+            host.attach_directory(self.directory, h)
+
+    def publish_weights(self, params) -> int:
+        """Hot-swap on every host + the directory's home-payload barrier:
+        still zero invalidation MESSAGES anywhere.  Returns the max publish
+        timestamp across hosts and asserts the fleet agrees on the
+        post-publish weight version."""
+        pts = 0
+        for host in self.hosts:
+            pts = max(pts, host.publish_weights(params))
+        self.directory.publish_barrier()
+        vers = {host.store.versions().get("params")
+                for host in self.hosts}
+        if len(vers) != 1:
+            raise RuntimeError(
+                f"hosts disagree on post-publish weight version: "
+                f"{sorted(vers)}")
+        return pts
+
+    def _maybe_rebase_all(self) -> None:
+        """One uniform shift across every directory shard and every
+        host's replicas: cross-shard timestamp order is protocol state."""
+        shift = self.directory.maybe_rebase()
+        if shift:
+            for host in self.hosts:
+                for rep in host.replicas:
+                    rep.rebase_kv(shift)
+
+    def run(self, requests: List[Request],
+            affinity: Optional[List[int]] = None
+            ) -> Tuple[List[Request], Dict]:
+        """Serve ``requests`` across the hosts.  ``affinity[i]`` pins
+        request i to a (decode-capable) host -- default round-robin over
+        the decode/mixed hosts.  A symmetric fleet (all mixed) runs every
+        host's scheduler directly; a fleet with prefill/decode roles
+        routes each request through the admission router first (see
+        :meth:`_run_routed`)."""
+        serve_pool = [h for h, r in enumerate(self.roles)
+                      if r != "prefill"]
+        if affinity is None:
+            affinity = [serve_pool[i % len(serve_pool)]
+                        for i in range(len(requests))]
+        if len(affinity) != len(requests):
+            raise ValueError(
+                f"affinity has {len(affinity)} entries for "
+                f"{len(requests)} requests")
+        for i, a in enumerate(affinity):
+            a = int(a)
+            if not 0 <= a < len(self.hosts):
+                raise ValueError(
+                    f"affinity[{i}] = {a} is out of range for "
+                    f"{len(self.hosts)} hosts (negative ids do not wrap)")
+            if self.hosts[a].role == "prefill":
+                raise ValueError(
+                    f"affinity[{i}] = {a} pins a stream to a prefill-only "
+                    f"pod; pin it to a decode or mixed host")
+        affinity = [int(a) for a in affinity]
+        if all(r == "mixed" for r in self.roles):
+            self._run_symmetric(requests, affinity)
+        else:
+            self._run_routed(requests, affinity)
+        return requests, self.coherence_report()
+
+    def _run_symmetric(self, requests: List[Request],
+                       affinity: List[int]) -> None:
+        per_host: List[List[Request]] = [[] for _ in self.hosts]
+        for req, a in zip(requests, affinity):
+            per_host[a].append(req)
+        queues = [h._mk_queues(reqs)
+                  for h, reqs in zip(self.hosts, per_host)]
+        tick = 0
+        while any(h._busy(q) for h, q in zip(self.hosts, queues)):
+            for h, host in enumerate(self.hosts):
+                host._paged_tick(queues[h], tick)
+            self._maybe_rebase_all()
+            tick += 1
+        self.directory.flush_deferred()    # drain write-behind payloads
+
+    # -- disaggregated prefill/decode routing -------------------------------
+
+    def _enqueue(self, queues: List[List[deque]], arrivals: List[int],
+                 h: int, req: Request) -> None:
+        """Hand a stream to host ``h``'s scheduler, replica-affined in the
+        same round-robin-by-group layout ``_mk_queues`` produces."""
+        nr = len(self.hosts[h].replicas)
+        queues[h][(arrivals[h] // nr) % nr].append(req)
+        arrivals[h] += 1
+
+    def _route(self, requests: List[Request], affinity: List[int],
+               queues: List[List[deque]], arrivals: List[int],
+               pq: List[deque], waiting: List[List]) -> None:
+        """The admission router.  A request whose LEADING prefix block is
+        warm (directory tag matches and the page is home, or the decode
+        host already caches that content) goes straight to its decode
+        host.  A cold leading block means full-prefix prefill: the stream
+        is forwarded to the prefill pod its chain hash names (spilling to
+        a less-loaded pod past ``spill_depth``), the decode host
+        subscribes to the prefix gids, and the stream parks in
+        ``waiting`` until the publish-then-notify wake hands it back."""
+        dirx = self.directory
+        rs = self._route_stats
+        pool = self._prefill_pool
+        for req, d in zip(requests, affinity):
+            host = self.hosts[d]
+            bids, tags = host._prefix_blocks_of(req.prompt)
+            warm = not bids or (
+                int(dirx.tags[bids[0]]) == tags[0]
+                and (dirx.home_ok(bids[0])
+                     or (host._tags[bids[0]] == tags[0]
+                         and host.prefix_engine.kv_ok(bids[0]))))
+            if warm:
+                rs["router_warm_direct"] += 1
+                self._enqueue(queues, arrivals, d, req)
+                continue
+            landed = dirx.subscribe(d, bids, tags)
+            pending = {int(b) for b in bids} - {int(b) for b in landed}
+            if not pending:
+                # raced warm: everything is already home
+                rs["router_warm_direct"] += 1
+                self._enqueue(queues, arrivals, d, req)
+                continue
+            p = pool[tags[0] % len(pool)]
+            if len(pq[p]) >= self.spill_depth:
+                for off in range(1, len(pool)):
+                    q = pool[(tags[0] % len(pool) + off) % len(pool)]
+                    if len(pq[q]) < len(pq[p]):
+                        p = q
+                        rs["router_spills"] += 1
+                        break
+            rs["router_cold_forwards"] += 1
+            pq[p].append(req)
+            waiting.append([req, d, pending, 0])
+
+    def _run_routed(self, requests: List[Request],
+                    affinity: List[int]) -> None:
+        """The disaggregated serving loop: prefill pods burn down their
+        forwarded cold-prefix queues and flush write-behind publishes
+        (firing the notify waves), woken streams hand off to their decode
+        hosts, and the decode/mixed hosts run the ordinary paged
+        scheduler -- all in lockstep ticks on the one directory."""
+        queues = [h._mk_queues([]) for h in self.hosts]
+        arrivals = [0] * len(self.hosts)
+        pq: List[deque] = [deque() for _ in self.hosts]
+        waiting: List[List] = []      # [req, decode_host, pending_gids, age]
+        self._route(requests, affinity, queues, arrivals, pq, waiting)
+        rs = self._route_stats
+        tick = 0
+        while (waiting or any(pq)
+               or any(h._busy(q) for h, q in zip(self.hosts, queues))):
+            for p in self._prefill_pool:
+                if pq[p]:
+                    self.hosts[p].prefill_only_tick(pq[p], tick)
+                    # flush NOW so this tick's notify waves fire and the
+                    # decode pods can admit next tick
+                    self.directory.flush_deferred(p)
+            for d in {w[1] for w in waiting}:
+                got = set(self.directory.pop_notifications(d))
+                if got:
+                    for w in waiting:
+                        if w[1] == d:
+                            w[2] -= got
+            for w in list(waiting):
+                req, d, pending, age = w
+                if pending and age < self.handoff_patience:
+                    w[3] += 1
+                    continue
+                if pending:
+                    # a publish was dropped (collision re-tag, version
+                    # race): force the admission rather than hang; any
+                    # cold prefill it causes lands in the decode pod's
+                    # role ledger
+                    rs["router_forced_admissions"] += 1
+                else:
+                    rs["router_handoffs"] += 1
+                waiting.remove(w)
+                self._enqueue(queues, arrivals, d, req)
+            for h, host in enumerate(self.hosts):
+                if host.role != "prefill":
+                    host._paged_tick(queues[h], tick)
+            self._maybe_rebase_all()
+            tick += 1
+        self.directory.flush_deferred()    # drain write-behind payloads
+
+    # config-like report keys: identical on every host by construction,
+    # so the aggregate reports them ONCE (and asserts the fleet agrees)
+    _CONFIG_KEYS = ("ts_bits", "kv_lease", "consistency",
+                    "n_prefix_blocks", "kv_pool_stacks")
+    # high-water marks: the fleet-wide value is the max, not the sum
+    _MAX_KEYS = ("pool_page_peak", "directory_peak_sharers")
+    # per-host breakout columns (host{h}_*)
+    _PER_HOST_KEYS = ("prefix_prefill_tokens_skipped", "prefix_flops_saved",
+                      "prefix_block_hits", "xhost_pages_fetched",
+                      "xhost_pages_published", "role_cold_prefills",
+                      "role_suffix_admissions", "role_pages_published",
+                      "role_prefill_jobs", "role_renewal_msgs",
+                      "decode_renewals", "decode_ticks")
+
+    def coherence_report(self) -> Dict[str, Any]:
+        """Per-host traffic counters summed, config scalars reported once,
+        high-water marks maxed, per-role/per-host counters broken out, and
+        the directory's cross-host ledger merged in."""
+        agg: Dict[str, Any] = {}
+        reports = [host.coherence_report() for host in self.hosts]
+        for k in self._CONFIG_KEYS:
+            vals = {rep[k] for rep in reports if k in rep}
+            if len(vals) > 1:
+                raise RuntimeError(
+                    f"hosts disagree on config scalar {k!r}: {sorted(vals)}")
+            if vals:
+                agg[k] = vals.pop()
+        for h, rep in enumerate(reports):
+            for k, v in rep.items():
+                if k in self._CONFIG_KEYS or k == "role":
+                    continue
+                if k in self._MAX_KEYS:
+                    agg[k] = max(agg.get(k, 0), int(v))
+                elif isinstance(v, (int, np.integer)) \
+                        and not isinstance(v, bool):
+                    agg[k] = agg.get(k, 0) + int(v)
+                elif k not in agg:
+                    agg[k] = v
+            agg[f"host{h}_role"] = rep["role"]
+            for k in self._PER_HOST_KEYS:
+                agg[f"host{h}_{k}"] = rep[k]
+        agg["roles"] = ",".join(rep["role"] for rep in reports)
+        agg["n_hosts"] = len(self.hosts)
+        agg.update(self._route_stats)
+        agg.update(self.directory.report())
+        return CoherenceReport(agg)

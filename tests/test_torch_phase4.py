@@ -150,3 +150,27 @@ def test_inject_restores_the_wrapper():
             assert nops.rmsnorm_2d is not orig
             raise RuntimeError
     assert nops.rmsnorm_2d is orig
+
+
+@pytest.mark.parametrize("fleet", sorted(cs.FLEETS))
+def test_fleet_checks_hold_on_the_cpu(fleet):
+    """Phase 3's multi-host fleets at a tiny config on the CPU: the fleet
+    serves and ``check_fleet``'s contract holds (migrated pages
+    bit-identical to their home rows among it)."""
+    from repro_torch.models import init_params
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(TINY, gen, torch.bfloat16)
+    mh, done, report, _dt = cs._serve_fleet(TINY, params, "cpu", fleet,
+                                            256, 128)
+    assert cs.check_fleet(fleet, mh, done, report) > 0
+    assert report["n_hosts"] == cs.FLEETS[fleet]["n_hosts"]
+    assert report["xhost_shards"] == cs.FLEETS[fleet]["n_shards"]
+
+
+def test_fleet_lane_holds_with_the_cpu_in_the_cards_place():
+    """Phase 4's fleet A lane: every integer counter of the fleet's report
+    identical between the two runs, and the tokens too."""
+    r = cs.phase4_fleet_card_vs_cpu("cpu", 0, hold=True, card="cpu",
+                                    cfg=TINY)
+    assert r["counters_ok"] and r["agree"] == r["tokens"] > 0
+    assert r["old_ratio"] == pytest.approx(0.0)

@@ -144,12 +144,25 @@ def test_entry_points_default_to_the_card_and_refuse_unported_paths():
     # the dense-cache wave (DecodeReplica.serve) is ported since; an empty
     # wave comes back as it went in
     assert tc.replicas[0].serve([]) == []
-    # still unported: multi-host serving, prefill-pod ticks and the
-    # encdec family (the moe family serves paged since its slice)
+    # still unported: the encdec family (the moe family serves paged and
+    # multi-host serving runs since their slices)
     whisper = t_reduced(t_get_arch("whisper-large-v3"))
-    for call in (lambda: tc.attach_directory(None, 0),
-                 lambda: tc.prefill_only_tick(None, 0),
-                 lambda: MultiHostServingCluster(tcfg, lambda: tparams),
-                 lambda: init_params_t(whisper, torch.Generator())):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        init_params_t(whisper, torch.Generator())
+
+
+def test_multi_host_fleet_defaults_to_the_card():
+    """``MultiHostServingCluster`` without ``device=`` runs on the card:
+    with no card it raises, naming ``device='cpu'``, and never falls back;
+    with ``device="cpu"`` it builds its hosts and directory there."""
+    _cfg, tcfg, _p, tparams = _arch()
+    kw = dict(prefix_block_tokens=4, n_prefix_blocks=8, n_decode_pages=8,
+              max_pages=8)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiHostServingCluster(tcfg, lambda: tparams, n_hosts=2, **kw)
+    mh = MultiHostServingCluster(tcfg, lambda: tparams, n_hosts=2,
+                                 device="cpu", **kw)
+    assert mh.directory.device.type == "cpu"
+    assert all(h.device.type == "cpu" and h.directory is mh.directory
+               for h in mh.hosts)
