@@ -19,8 +19,20 @@ Phases (any failure exits non-zero; nothing is caught):
      (CUDA-graph replay), the eager wrapper call and the eager plain
      version, and each kernel's bound (the larger of its bytes at
      3.35 TB/s and its ops at the peak of their type: fp32 67 TFLOP/s,
-     bf16 tensor cores 989 TFLOP/s);
-  3. the main path: ``ServingCluster`` serving full-width, full-depth
+     bf16 tensor cores 989 TFLOP/s); K9 (the coherence simulator's whole
+     loop, one launch) against its plain loop on the card, every tensor
+     of the final state bit for bit, over the litmus, fft at 16 cores
+     (both protocols), the tiny-cache geometry, ts_bits=4, the E-state,
+     Ackwise k = 4 and speculation off: ms and us a simulated step of K9
+     and of the plain loop, bound by its steps times one dependent L2
+     round trip (the same source's pointer-chase probe);
+  3. the simulator path: every golden run (``tests/data/
+     torch_sim_golden.json``: fig4's 48 runs at 64 cores and scale 1.0,
+     fig8's 6 at 256 cores) through ``repro_torch.core.simulate`` on the
+     card, each one K9 launch and one host sync, bit-identical to its
+     entry and SC-clean; wall ms, steps and us a step each, fig4's and
+     fig8's averages as ``benchmarks/paper_figs.py`` computes them; then
+     the main path: ``ServingCluster`` serving full-width, full-depth
      tinyllama-1.1b (random bf16 weights from a seeded generator) on the
      card -- 8 requests sharing a 64-token system prompt -- with every
      kernel's launch count set to 0 before and read after (K4's, and on
@@ -1114,6 +1126,290 @@ def phase3_main_path(smi):
     return counts, variants, n_tok / dt
 
 
+# The paper's coherence simulator: K9 runs the JAX package's whole
+# while_loop in one launch.  Phase 2 holds it against the plain loop on the
+# card, bit for bit, over the whole state; phase 3 runs every golden run
+# (tests/data/torch_sim_golden.json, scripts/sim_golden.py: fig4 at 64
+# cores and scale 1.0, fig8's 256-core point) through core.simulate.
+SIM_GOLDEN = ROOT / "tests" / "data" / "torch_sim_golden.json"
+SIM_TINY = dict(n_cores=8, l1_sets=4, l1_ways=2, llc_sets=4, llc_ways=2)
+
+
+def _sim_litmus():
+    from repro_torch.core.traces import _Builder
+    b = _Builder(2)
+    b.store(0, 0)
+    b.load(0, 1)
+    b.store(1, 1)
+    b.load(1, 0)
+    return b.build(4, "litmus")
+
+
+def _sim_case_state(tr, proto, geom_kw=None, **cfg_kw):
+    """(geom, state()) for one run as ``simulate`` sizes it (log on), each
+    ``state()`` a fresh ``init_state`` on the card."""
+    from repro_torch.core import Geometry, SimConfig
+    from repro_torch.core.simulator import init_state
+    cfg = SimConfig(**{"max_steps": 4_000_000, **cfg_kw})
+    geom = dataclasses.replace(
+        Geometry(**(geom_kw or {"n_cores": tr.n_cores})),
+        n_cores=tr.n_cores, trace_len=tr.length,
+        n_addr=max(Geometry().n_addr, int(tr.n_addr)),
+        log_size=int(min(cfg.max_steps, tr.total_ops() * 8 + 4096)))
+
+    def state():
+        return init_state(geom, tr, cfg.as_tensors("cuda"),
+                          directory=proto == "directory", device="cuda")
+    return geom, state
+
+
+def _flat(st, pre=""):
+    out = {}
+    for k, v in st.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{pre}{k}."))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def l2_round_trip_ms(hops=20000, reps=5):
+    """One dependent L2 round trip on this card: K9's source's probe
+    follows a random cycle over 4 MB (L2-resident, past L1) through
+    ``ld.global.cg``; median of ``reps`` runs of ``hops`` loads."""
+    import torch
+    from repro_torch.kernels.coherence_sim.kernel import l2_chase
+    n = 1 << 20
+    g = torch.Generator().manual_seed(SEED)
+    perm = torch.randperm(n, generator=g)
+    nxt = torch.empty(n, dtype=torch.int64)
+    nxt[perm] = perm.roll(-1)
+    nxt = nxt.to(torch.int32).cuda()
+    nxt.sum()                                   # bring it into L2
+    l2_chase(nxt, hops)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        l2_chase(nxt, hops)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / hops)
+    return sorted(times)[len(times) // 2]
+
+
+def phase2_coherence_sim(rows):
+    """K9 against its plain loop on the card, every tensor of the final
+    state bit for bit: the litmus (both protocols), fft at 16 cores and
+    scale 0.1 (both), the tiny-cache geometry, ts_bits=4, the E-state,
+    Ackwise (k = 4) and speculation off.  ms and us a simulated step of
+    each (K9: CUDA events around its one launch; the plain loop: the
+    host's clock, synchronised); the row's numbers are the fft / Tardis
+    run's, its bound that run's steps times one L2 round trip."""
+    import torch
+    from repro_torch.core.traces import make_trace
+    from repro_torch.kernels.coherence_sim import kernel as CK
+    from repro_torch.kernels.coherence_sim.ref import sim_run_ref
+    fft16 = make_trace("fft", 16, scale=0.1)
+    cases = (("litmus/tardis", _sim_litmus(), "tardis", None, {}),
+             ("litmus/directory", _sim_litmus(), "directory", None, {}),
+             ("fft16/tardis", fft16, "tardis", None, {}),
+             ("fft16/directory", fft16, "directory", None, {}),
+             ("tiny-cache barnes8/tardis", make_trace("barnes", 8, scale=0.1),
+              "tardis", SIM_TINY, {}),
+             ("ts_bits=4 volrend8", make_trace("volrend", 8, scale=0.1),
+              "tardis", None, {"ts_bits": 4}),
+             ("estate water_sp4", make_trace("water_sp", 4, scale=0.1),
+              "tardis", None, {"estate": True}),
+             ("ackwise_k=4 barnes8/directory",
+              make_trace("barnes", 8, scale=0.1), "directory", None,
+              {"ackwise_k": 4}),
+             ("speculate=False volrend8", make_trace("volrend", 8,
+                                                     scale=0.1),
+              "tardis", None, {"speculate": False}))
+    t_l2 = l2_round_trip_ms()
+    log(f"  one dependent L2 round trip (K9's probe): {t_l2 * 1e6:.1f} ns")
+    row = None
+    for label, tr, proto, geom_kw, cfg_kw in cases:
+        geom, state = _sim_case_state(tr, proto, geom_kw, **cfg_kw)
+        got, want = state(), state()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        CK.sim_run(got, geom, proto)
+        b.record()
+        torch.cuda.synchronize()
+        k9_ms = a.elapsed_time(b)
+        t0 = time.perf_counter()
+        sim_run_ref(want, geom, proto)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        fa, fb = _flat(got), _flat(want)
+        err = max(max_err(fa[k], fb[k]) for k in fa)
+        bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+        steps = int(got["steps"])
+        log(f"  K9 {label}: {steps} steps; K9 {k9_ms:.3f} ms = "
+            f"{k9_ms / steps * 1e3:.3f} us/step, plain {plain_ms:.1f} ms = "
+            f"{plain_ms / steps * 1e3:.1f} us/step; "
+            + ("bit-identical" if not bad else f"DIFFERS in {bad}"))
+        assert not bad, f"K9 ({label}) differs from its plain loop: {bad}"
+        if label == "fft16/tardis":
+            fresh = [state() for _ in range(5)]
+            torch.cuda.synchronize()
+            times, calls = [], []
+            for st in fresh:
+                a.record()
+                t0 = time.perf_counter()
+                CK.sim_run(st, geom, proto)
+                b.record()
+                torch.cuda.synchronize()
+                calls.append((time.perf_counter() - t0) * 1e3)
+                times.append(a.elapsed_time(b))
+            row = dict(name="sim_run", route="cuda", path="simulator",
+                       source="src/repro_torch/kernels/coherence_sim/csrc/"
+                       "sim_run.cu",
+                       replaces="src/repro/core/simulator.py:570 "
+                       "(lax.while_loop; no Pallas kernel)",
+                       max_abs_err=err, ms=sorted(times)[2],
+                       call_ms=sorted(calls)[2], plain_ms=plain_ms,
+                       bound_ms=steps * t_l2, bound_by="serial steps",
+                       library_ms=None, launch_ms=None,
+                       shape=f"fft, 16 cores, scale 0.1, Tardis: {steps} "
+                       f"steps; us/step K9 {sorted(times)[2] / steps * 1e3:.3f}"
+                       f", plain {plain_ms / steps * 1e3:.1f}, L2 round trip "
+                       f"{t_l2 * 1e6:.1f} ns")
+        del got, want
+    rows.append(row)
+    _log_row(row)
+
+
+def phase3_simulator_path(smi):
+    """Every golden run (fig4: 12 benchmarks x {MSI, Ackwise k=4, Tardis,
+    Tardis without speculation} at 64 cores and scale 1.0; fig8: fmm, fft
+    and lu_c at 256 cores and scale 0.08 under MSI and Tardis) through
+    ``repro_torch.core.simulate`` on the card, each on its stored trace
+    (``tests/data/torch_sim_traces.npz``: the reference's inputs, which
+    this machine's numpy need not regenerate -- the generators it does
+    reproduce are printed): each exactly one K9 launch and one host sync
+    (``torch.cuda.set_sync_debug_mode``), bit-identical to its golden
+    entry (stats, cycles, ops, aborted, pts, the log's sha256s, steps)
+    and SC-clean (``check_sc``); wall ms, steps and us a step each; then
+    fig4's and fig8's averages as ``benchmarks/paper_figs.py`` computes
+    them.  Returns the launch counts of the runs."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core import SimConfig, Trace, make_trace, simulate
+    from repro_torch.core.check import check_sc
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from sim_golden import load_traces, result_entry, trace_key
+    golden = json.loads(SIM_GOLDEN.read_text())
+    traces = load_traces(Trace)
+    same = [k for k, tr in traces.items() if all(
+        np.array_equal(getattr(tr, f), getattr(make_trace(
+            tr.name, tr.n_cores, scale=float(k.split("/")[2])), f))
+        for f in ("op_type", "op_addr", "op_aux", "op_think"))]
+    log(f"  numpy {np.__version__}: this machine's generators rebuild "
+        f"{len(same)} of the {len(traces)} stored traces (not: "
+        f"{sorted(set(traces) - set(same))})")
+    res_by_key, walls = {}, []
+    reset_launch_counts()
+    for entry in golden["runs"]:
+        tr = traces[trace_key(entry)]
+        cfg = SimConfig(max_steps=golden["max_steps"], **entry["config"])
+        before = launch_counts()["sim_run"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = simulate(tr, entry["proto"], cfg, log=True)
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        launches = launch_counts()["sim_run"] - before
+        got = result_entry(res)
+        bad = [k for k in ("stats", "cycles", "ops", "aborted", "pts",
+                           "log_n", "log_sha256") if got[k] != entry[k]]
+        if res.steps != entry["steps"]:
+            bad.append("steps")
+        check_sc(res.log, entry["n_cores"])
+        walls.append((wall, res.steps))
+        log(f"  {entry['key']:36s} {wall:9.2f} ms wall, {res.steps:6d} "
+            f"steps, {wall / res.steps * 1e3:6.3f} us/step, {launches} "
+            f"launch, {syncs} sync, SC clean, "
+            + ("bit-identical to golden" if not bad else f"DIFFERS: {bad}"))
+        assert launches == 1 and syncs == 1, (entry["key"], launches, syncs)
+        assert not bad, f"{entry['key']} differs from its golden entry: {bad}"
+        res_by_key[entry["key"]] = res
+    counts = launch_counts()
+    wall = sum(w for w, _ in walls)
+    steps = sum(n for _, n in walls)
+    log(f"simulator path on {smi}: {len(walls)} runs, {steps} steps in "
+        f"{wall:.1f} ms wall = {wall / steps * 1e3:.3f} us/step; K9 "
+        f"launches {counts['sim_run']}")
+    # one run's breakdown: K9's device time (CUDA events around the one
+    # launch) against simulate's wall time for the same run
+    from repro_torch.kernels.coherence_sim.kernel import sim_run
+    entry = next(e for e in golden["runs"] if e["key"] == "fig4/fft/tardis")
+    geom, state = _sim_case_state(traces[trace_key(entry)], "tardis")
+    st = state()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sim_run(st, geom, "tardis")
+    b.record()
+    torch.cuda.synchronize()
+    k9_ms = a.elapsed_time(b)
+    run_ms = next(w for (w, _), e in zip(walls, golden["runs"])
+                  if e is entry)
+    log(f"  fig4/fft/tardis: K9 {k9_ms:.2f} ms on the card of simulate's "
+        f"{run_ms:.2f} ms wall ({k9_ms / run_ms:.3f}; the rest: state "
+        f"set-up, launch, one read-back)")
+
+    def rel(fig, bench, a, b, stat=None):
+        ra = res_by_key[f"{fig}/{bench}/{a}"]
+        rb = res_by_key[f"{fig}/{bench}/{b}"]
+        if stat:
+            return ra.stats[stat] / max(1, rb.stats[stat])
+        return ra.cycles / max(1, rb.cycles)
+
+    fig4 = sorted({e["bench"] for e in golden["runs"]
+                   if e["fig"] == "fig4"})
+    out = {
+        "tardis_vs_msi": float(np.mean([rel("fig4", b, "directory",
+                                            "tardis") for b in fig4])),
+        "nospec_vs_msi": float(np.mean([rel("fig4", b, "directory",
+                                            "tardis,speculate=False")
+                                        for b in fig4])),
+        "ackwise_vs_msi": float(np.mean([rel("fig4", b, "directory",
+                                             "directory,ackwise_k=4")
+                                         for b in fig4])),
+        "traffic_vs_msi": float(np.mean([rel("fig4", b, "tardis",
+                                             "directory", "traffic")
+                                         for b in fig4]))}
+    log(f"fig4 (64 cores, scale 1.0, {len(fig4)} benchmarks) on the card: "
+        + json.dumps(out))
+    fig8 = sorted({e["bench"] for e in golden["runs"]
+                   if e["fig"] == "fig8"})
+    out8 = {"tardis_vs_msi": float(np.mean([rel("fig8", b, "directory",
+                                                "tardis") for b in fig8])),
+            "traffic_vs_msi": float(np.mean([rel("fig8", b, "tardis",
+                                                 "directory", "traffic")
+                                             for b in fig8]))}
+    log(f"fig8 (256 cores, scale 0.08, {', '.join(fig8)}) on the card: "
+        + json.dumps(out8))
+    assert counts["sim_run"] == len(golden["runs"]), counts
+    return counts
+
+
 # Multi-host serving: the JAX package's model of a fleet -- K hosts, each a
 # ServingCluster with the paged path's pool (4096 + 512 blocks of 16
 # tokens), ticked in lockstep in one process and sharing one sharded lease
@@ -2122,7 +2418,10 @@ def main() -> int:
     phase2_kernels(rows)
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
+    phase2_coherence_sim(rows)
     stamp("phase 2")
+    sim_counts = phase3_simulator_path(smi)
+    stamp("phase 3 (simulator path)")
     counts, variants, _tps = phase3_main_path(smi)
     stamp("phase 3 (paged path)")
     phase3_multi_host(smi)
@@ -2147,7 +2446,7 @@ def main() -> int:
     # main path); K8's rows count their variant's
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
-                   **wave_counts}
+                   "simulator": (sim_counts, {}), **wave_counts}
     for r in rows:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])

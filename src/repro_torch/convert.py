@@ -13,6 +13,8 @@ block is one dict in both packages.  Leaves arrive as numpy arrays (bf16 ones as
 ``bfloat16``, which torch cannot wrap directly, so they travel as int16
 bits).  Element counts and bytes are unchanged, so the serving cluster's
 ``param_bytes`` and flops-per-token charges match the JAX cluster's.
+:func:`sim_state_from_jax` carries the coherence simulator's state across
+the same way (its tests start both simulators from one state).
 """
 from __future__ import annotations
 
@@ -65,3 +67,13 @@ def _index(x, i):
     if isinstance(x, dict):
         return {k: _index(v, i) for k, v in x.items()}
     return x[i].clone()
+
+
+def sim_state_from_jax(st: Mapping[str, Any], device="cpu") -> dict:
+    """The JAX simulator's state (``repro.core.simulator.init_state``, or
+    a state its loop returned) as the port's: the same nested keys, each
+    leaf through ``np.asarray`` to a tensor on ``device`` (int32 stays
+    int32, bool becomes ``torch.bool``, the stats float32 scalars)."""
+    if isinstance(st, Mapping):
+        return {k: sim_state_from_jax(v, device) for k, v in st.items()}
+    return tensor_from_numpy(st, device)

@@ -16,6 +16,7 @@ def wrappers() -> Dict[str, Callable]:
     ``launches`` that counts the launches of its kernel (and nothing
     else); a wrapper with several kernels (K4, K7) also counts them by
     variant in ``variants``."""
+    from .coherence_sim import kernel as cs
     from .decode_attention import kernel as da
     from .flash_attention import kernel as fa
     from .rmsnorm import kernel as rn
@@ -29,7 +30,8 @@ def wrappers() -> Dict[str, Callable]:
             "dense_decode": da.dense_decode,
             "flash_prefill": fa.flash_prefill,
             "ssd_chunk": ss.ssd_chunk,
-            "rmsnorm": rn.rmsnorm_2d}
+            "rmsnorm": rn.rmsnorm_2d,
+            "sim_run": cs.sim_run}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -116,6 +116,8 @@ SIGNATURES = {
                          + [_VP] * 3),
     "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
                         _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
+    "tardis_sim_run": [_VP, _I32, _VP, _I32, _I32, _VP],
+    "tardis_l2_chase": [_VP, _I32, _VP, _VP],
 }
 
 
