@@ -95,6 +95,23 @@ Phases (any failure exits non-zero; nothing is caught):
      to 32000 and the experts to 16 (top-8) so the CPU's fp32 anchor
      fits;
   5. the kernel JSON line, then the result line.
+The training path (phases 2-4): phase 2 holds K10 (the flash-attention
+backward: dq, dk, dv) against its plain version (the closed form over the
+naive softmax) at the training shape (B 4, S 1024, 32 / 4 heads, Dh 64)
+and at the paged suffix's q_offset / kv_len, and K11 (the RMSNorm
+backward, plain and add) at (4096, 2048), each in fp32 (2e-4) and bf16
+(3e-2) with two calls bit-identical, beside SDPA's and ``F.rms_norm``'s
+backward (eager ``torch.autograd.grad``); phase 3 runs ``runtime.train``
+on full-width, full-depth tinyllama-1.1b in fp32 weights (4 steps of
+4 x 1024 tokens, no checkpoint; the earlier paths' weights freed first)
+with the launch counts set to 0 before and read after (K6 and K10 22 a
+step, K8 and K11 45: 1 plain + 44 add), every parameter's gradient
+finite and non-zero, ms a step, tokens/s, the peak memory and one warm
+step profiled; phase 4 holds the card against the CPU at full width and 2
+layers (loss, every gradient leaf, the parameters after 2 AdamW steps),
+a crash and restart on the card against an uninterrupted run, and the
+ssm / hybrid losses raising ``NotImplementedError`` under autograd on the
+card (K7 and K8's gate variant are forward-only).
 Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
 version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
 zamba2: B = 4, Hkv = 32, G = 1, Dh = 80; T = 4096, kv_len = 3000), with
@@ -141,6 +158,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -911,6 +929,169 @@ def k8_row(add, randn, name, path, variant, r, d):
     if unfused is not None:
         log(f"  {name}: the eager chain it replaces "
             f"{row['unfused_ms'] * 1e3:.2f} us (graph replay)")
+
+
+# K10 (flash-attention backward) at the training path's attention -- B 4,
+# S 1024, 32 / 4 heads, Dh 64 -- and at the paged suffix's q_offset /
+# kv_len; K11 (RMSNorm backward) at the training path's rows (4 x 1024
+# tokens of 2048)
+K10_ROWS = (("flash_backward.train", "train", 4, 1024, 1024, 32, 4, 64, 0,
+             1024),
+            ("flash_backward.paged_suffix", "paged", 1, 16, 80, 32, 4, 64,
+             64, 80))
+K11_ROWS = (("rmsnorm_backward.train", "train", "plain", 4096, 2048),
+            ("rmsnorm_backward.train_add", "train", "add", 4096, 2048))
+
+
+def phase2_backward_kernels(rows):
+    """K10 and K11 against their plain versions on the card: each shape in
+    fp32 (2e-4) and bf16 (3e-2), two calls bit-identical; then each row's
+    device time (graph replay), eager call, plain version (eager), bound
+    and library yardstick (eager ``torch.autograd.grad`` through SDPA,
+    ``is_causal`` / mask and ``enable_gqa``, for K10; through
+    ``F.rms_norm`` for K11), in the training path's dtype, fp32."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_backward_ref
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    launch_ms = rows[0]["launch_ms"]
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def add(row):
+        row.update(route="cuda", launch_ms=launch_ms)
+        rows.append(row)
+        _log_row(row)
+
+    def held(name, got, again, want, tol):
+        """Each output within ``tol`` of the plain version (dw relative to
+        its largest value: a sum over rows) and bit-identical to the
+        second call; returns the max |err|."""
+        for a, a2, w in zip(got, again, want):
+            assert torch.equal(a, a2), f"{name}: two calls differ"
+            atol = tol["atol"] * (float(w.float().abs().max())
+                                  if w.dim() == 1 else 1.0)
+            torch.testing.assert_close(a.float(), w.float(),
+                                       rtol=tol["rtol"], atol=atol)
+        return max(max_err(a.float(), w.float()) for a, w in zip(got, want))
+
+    # --- K10 flash_backward ------------------------------------------------
+    for (name, path, b, sq, skv, h, hkv, dh, q_off, kv_len) in K10_ROWS:
+        kw = dict(causal=True, q_offset=q_off, kv_len=kv_len)
+        q32, k32, v32 = randn(b, sq, h, dh), randn(b, skv, hkv, dh), \
+            randn(b, skv, hkv, dh)
+        do32 = randn(b, sq, h, dh)
+        errs = {}
+        for tag, dt, tol in (("fp32", f32, FP32), ("bf16", b16, BF16)):
+            q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
+            o = FK.flash_prefill(q, k, v, **kw)
+            got = FK.flash_backward(q, k, v, o, do, **kw)
+            again = FK.flash_backward(q, k, v, o, do, **kw)
+            want = flash_attention_backward_ref(q, k, v, o, do, **kw)
+            errs[tag] = held(f"K10 {name} {tag}", got, again, want, tol)
+            del got, again, want
+        log(f"K10 {name} max |err| (dq, dk, dv): {errs}; two calls "
+            f"bit-identical")
+        q, k, v, do = q32, k32, v32, do32
+        o = FK.flash_prefill(q, k, v, **kw)
+        live = torch.clamp(torch.minimum(
+            q_off + torch.arange(sq, device=dev) + 1,
+            torch.tensor(kv_len, device=dev)), min=0)
+        # operations: five Dh-long dot products per (query, live key, head)
+        # -- s, dP, dv, dq, dk -- at fp32's 67 TFLOP/s; bytes: q, k, v, o,
+        # dO read and dq, dk, dv written once (fp32)
+        nops = 10 * b * h * dh * int(live.sum())
+        kv_rows = min(kv_len, q_off + sq)
+        nbytes = 4 * (3 * b * sq * h * dh + 2 * b * kv_rows * hkv * dh
+                      + b * sq * h * dh + 2 * b * skv * hkv * dh)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        qpos = q_off + torch.arange(sq, device=dev)
+        kpos = torch.arange(skv, device=dev)
+        mask = (kpos[None] <= qpos[:, None]) & (kpos[None] < kv_len)
+        aligned = q_off == 0 and kv_len == skv
+        out = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True) if aligned
+               else F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True))
+        dot = do.transpose(1, 2)
+        lib = torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        got = FK.flash_backward(q, k, v, o, do, **kw)
+        for a, w in zip(got, lib):
+            torch.testing.assert_close(a, w.transpose(1, 2), **FP32)
+        big = sq * skv > 1 << 16
+
+        def library(out=out, qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        t = timings(lambda q=q, k=k, v=v, o=o, do=do, kw=kw:
+                    FK.flash_backward(q, k, v, o, do, **kw),
+                    lambda q=q, k=k, v=v, o=o, do=do, kw=kw:
+                    flash_attention_backward_ref(q, k, v, o, do, **kw),
+                    iters=5 if big else 20, plain_iters=2 if big else 20)
+        t["library_ms"] = median_ms(library, 5 if big else 20,
+                                    3 if big else 7)
+        add(dict(
+            name=name, wrapper="flash_backward", path=path,
+            source="src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_backward.cu", replaces="src/repro/kernels/"
+            "flash_attention/kernel.py:64", max_abs_err=errs["fp32"],
+            shape=f"B={b} Sq={sq} Skv={skv} q_offset={q_off} "
+            f"kv_len={kv_len} H={h} Hkv={hkv} dh={dh} fp32 (library: eager "
+            f"autograd)", **t,
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops)))))
+        del q32, k32, v32, do32, q, k, v, do, o, qt, kt, vt, out, lib, got
+        torch.cuda.empty_cache()
+
+    # --- K11 rmsnorm_backward ----------------------------------------------
+    for name, path, variant, r, d in K11_ROWS:
+        x32, dy32, dh32 = randn(r, d), randn(r, d), randn(r, d)
+        w = 1 + 0.1 * randn(d)
+        errs = {}
+        for tag, dt, tol in (("fp32", f32, FP32), ("bf16", b16, BF16)):
+            x, dy = x32.to(dt), dy32.to(dt)
+            dh = dh32.to(dt) if variant == "add" else None
+            got = RK.rmsnorm_backward(x, w, dy, dh=dh)
+            again = RK.rmsnorm_backward(x, w, dy, dh=dh)
+            errs[tag] = held(f"K11 {name} {tag}", got, again,
+                             rmsnorm_backward_ref(x, w, dy, dh=dh), tol)
+        log(f"K11 {name} ({variant}) max |err| (dx, dw): {errs}; two calls "
+            f"bit-identical")
+        x, dy = x32, dy32
+        dh = dh32 if variant == "add" else None
+        xl = x.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        yl = F.rms_norm(xl, (d,), wl, 1e-5)
+
+        def library(yl=yl, xl=xl, wl=wl, dy=dy):
+            return torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)
+
+        # bytes: x (or h), dy (and dh) and w read, dx and dw written, fp32;
+        # about 10 operations an element
+        nbytes = 4 * ((3 if dh is None else 4) * r * d + 2 * d)
+        t = timings(lambda x=x, dy=dy, dh=dh: RK.rmsnorm_backward(
+            x, w, dy, dh=dh), lambda x=x, dy=dy, dh=dh: rmsnorm_backward_ref(
+                x, w, dy, dh=dh))
+        t["library_ms"] = median_ms(library)
+        add(dict(
+            name=name, wrapper="rmsnorm_backward", path=path,
+            variant=variant, source="src/repro_torch/kernels/rmsnorm/csrc/"
+            "rmsnorm_backward.cu", replaces="src/repro/kernels/rmsnorm/"
+            "kernel.py:24", max_abs_err=errs["fp32"],
+            shape=f"rows={r} D={d} fp32 (library: eager autograd through "
+            f"F.rms_norm)", **t,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 10 * r * d)))))
+    torch.cuda.empty_cache()
 
 
 def _requests(Request, np, vocab, n=8, seed=SEED):
@@ -1776,6 +1957,283 @@ def phase3_kimi_path(smi):
     return counts, variants
 
 
+# The training path: ``runtime.train`` on full-width, full-depth
+# tinyllama-1.1b in fp32 (as the JAX launcher initialises it), 4 steps of
+# 4 x 1024 tokens, no checkpoint.  Forward: K6 once and K8 45 times a step
+# (1 plain + 44 add); backward: K10 and K11 as many times.
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 1024
+TRAIN_KERNELS = ("flash_prefill", "flash_backward", "rmsnorm",
+                 "rmsnorm_backward")
+
+
+def _train_batch(cfg, step, b, s, dev):
+    from repro_torch.data import batch_to, synthetic_batch
+    return batch_to(synthetic_batch(SEED, step, b, s, cfg.vocab), dev)
+
+
+def phase3_train_path(smi):
+    """``runtime.train`` on the card at full width and depth, the earlier
+    paths' weights freed first: the launch counts set to 0 just before the
+    run and read just after (K6, K10, K8, K11; per step 22 / 22 / 45 / 45,
+    K8 and K11 1 plain + 44 add); ms a step, tokens/s and the peak memory;
+    every parameter leaf's gradient finite and non-zero; one warm step under
+    ``torch.profiler`` (idle share, device ms by kind and kernel).  Returns
+    (launch counts, launches by variant)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params, loss_fn, param_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step, train
+    from repro_torch.tree import leaves, value_and_grad
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, torch.float32)
+    n_par = sum(t.numel() for t in param_leaves(params))
+    tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     seed=SEED, log_every=1)
+    step_s = []
+    reset_launch_counts()
+    out = train(cfg, params, tc, device="cuda",
+                on_metrics=lambda st, m: step_s.append(m["step_s"]))
+    counts = launch_counts()
+    variants = variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    assert out["final_step"] == TRAIN_STEPS and out["restarts"] == 0
+    assert all(map(math.isfinite, losses)), losses
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    warm = step_s[1:]
+    log(f"training path on {smi}: {TRAIN_ARCH} full width and depth "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {n_par / 1e9:.3f} B "
+        f"fp32 params), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: losses {losses}; ms a step "
+        f"{[round(t * 1e3, 3) for t in step_s]} (first step cold); warm "
+        f"{sum(warm) / len(warm) * 1e3:.3f} ms a step = "
+        f"{toks * len(warm) / sum(warm):.1f} tokens/s; max_memory_allocated "
+        f"{peak:.2f} GB")
+    log(f"launches on the training path: {counts}")
+    log(f"launches by variant on the training path: {variants}")
+    want = {"flash_prefill": cfg.n_layers, "flash_backward": cfg.n_layers,
+            "rmsnorm": 2 * cfg.n_layers + 1,
+            "rmsnorm_backward": 2 * cfg.n_layers + 1}
+    for k in TRAIN_KERNELS:
+        assert counts[k] == TRAIN_STEPS * want[k], \
+            f"{k}: {counts[k]} launches in {TRAIN_STEPS} steps, want " \
+            f"{want[k]} a step"
+    for k in ("rmsnorm", "rmsnorm_backward"):
+        assert variants[k] == {"plain": TRAIN_STEPS,
+                               "add": TRAIN_STEPS * 2 * cfg.n_layers}, \
+            f"{k} by variant: {variants[k]}"
+    params, opt_state = out["params"], out["opt_state"]
+    del out, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every leaf's gradient finite and non-zero
+    batch = _train_batch(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    loss, grads = value_and_grad(lambda p, b: loss_fn(cfg, p, b), params,
+                                 batch)
+    bad = [i for i, gr in enumerate(leaves(grads))
+           if not bool(torch.isfinite(gr).all()) or not bool(gr.any())]
+    assert not bad, f"parameter leaves with a zero or non-finite " \
+        f"gradient: {bad}"
+    log(f"gradients on {smi}: all {len(leaves(grads))} parameter leaves "
+        f"finite and non-zero (loss {float(loss):.6f})")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one warm step under the profiler
+    step_fn = build_step(cfg, tc)
+    opt_state = adamw.init(params)
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _r, m = step_fn(params, opt_state, None, batch)
+        return float(m["loss"])
+
+    one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev_rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
+    kinds = {}
+    for e in dev_rows:
+        kind = ("K10" if "flash_bwd" in e.key else
+                "K6" if "flash_prefill" in e.key else
+                "K11" if "rmsnorm_bwd" in e.key else
+                "K8" if "rmsnorm_rows" in e.key else
+                "matmul" if any(k in e.key.lower() for k in
+                                ("gemm", "xmma", "nvjet", "cutlass"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log(f"profile: training step on {smi}: wall {wall:.3f} s under the "
+        f"profiler, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}; device ms by kind "
+        + json.dumps({k: round(v, 3) for k, v in kinds.items()}))
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    del params, opt_state, batch, step_fn, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+# Phase 4 of the training path: the card against the CPU at full width and
+# 2 layers, one batch of 2 x 256 tokens.  The loss within rtol 1e-5 and
+# each gradient leaf within 1e-4 of the leaf's largest magnitude: fp32 on
+# both (no TF32), sums in two orders.  The parameters after 2 AdamW steps
+# within 2 x the summed learning rates (plus 1e-6 of each value): AdamW's
+# normalized step is at most about lr an element, so an element whose
+# gradient is at rounding level on both devices may take it with either
+# sign.
+TRAIN_P4_LAYERS, TRAIN_P4_BATCH, TRAIN_P4_SEQ = 2, 2, 256
+TRAIN_P4_LOSS = dict(rtol=1e-5, atol=0)
+TRAIN_P4_GRAD_REL = 1e-4
+# the crash-and-restart check: a cut width (4 layers of 256, 4 / 2 heads
+# of 64, vocab 1024), compression and 2 microbatches, a crash at step 17
+# of 30 with checkpoints every 10; every step's loss within rtol 1e-3 of
+# an uninterrupted run's.  The error-feedback residual is not
+# checkpointed: it carries over the crash, as in the JAX package, so the
+# steps after the first replayed one see another residual; a replay from
+# a wrong state or batch moves the loss by ~1e-2 (it falls ~0.05 a step).
+CRASH_CFG = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                 d_head=64, d_ff=512, vocab=1024)
+CRASH_LOSS = dict(rtol=1e-3, atol=0)
+
+
+def phase4_train_card_vs_cpu(smi):
+    """The training path on the card against the CPU (the plain versions,
+    by ``device="cpu"``); a crash and restart on the card against an
+    uninterrupted run; the ssm and hybrid losses raising under autograd on
+    the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step, train
+    from repro_torch.tree import leaves, tree_map, value_and_grad
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=TRAIN_P4_LAYERS)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 20),
+                         torch.float32)
+    batch = _train_batch(cfg, 0, TRAIN_P4_BATCH, TRAIN_P4_SEQ, "cpu")
+    tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_P4_BATCH,
+                     seq=TRAIN_P4_SEQ)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = value_and_grad(lambda pp, bb: loss_fn(cfg, pp, bb), p,
+                                     b)
+        step_fn, st = build_step(cfg, tc), adamw.init(p)
+        lrs = []
+        for _ in range(2):
+            p, st, _r, m = step_fn(p, st, None, b)
+            lrs.append(float(m["lr"]))
+        res[dev] = (float(loss), [gr.cpu() for gr in leaves(grads)],
+                    [t.cpu() for t in leaves(p)], lrs)
+        log(f"phase 4 training lane on {dev}: loss {float(loss):.7f}, "
+            f"2 AdamW steps in {time.perf_counter() - t0:.1f} s")
+        del p, b, grads, st, step_fn
+    torch.cuda.empty_cache()
+    (lc, gc_, pc, lrs), (lh, gh, ph, _) = res["cuda"], res["cpu"]
+    assert math.isclose(lc, lh, rel_tol=TRAIN_P4_LOSS["rtol"]), (lc, lh)
+    g_worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(gc_, gh))
+    assert g_worst <= TRAIN_P4_GRAD_REL, g_worst
+    step_bound = 2 * sum(lrs)
+    p_worst, n_moved = 0.0, 0
+    for a, b in zip(pc, ph):
+        d = (a - b).abs()
+        assert bool((d <= step_bound + 1e-6 * b.abs()).all()), \
+            float(d.max())
+        p_worst = max(p_worst, float(d.max()))
+        n_moved += int((d > 1e-6 * b.abs() + 1e-9).sum())
+    n_el = sum(t.numel() for t in ph)
+    log(f"phase 4 training lane (full width, {cfg.n_layers} layers, "
+        f"{TRAIN_P4_BATCH} x {TRAIN_P4_SEQ} tokens) on {smi}: loss card "
+        f"{lc:.7f} cpu {lh:.7f} (rel {abs(lc - lh) / abs(lh):.2e}); worst "
+        f"gradient leaf error / its max {g_worst:.2e} (limit "
+        f"{TRAIN_P4_GRAD_REL}); params after 2 AdamW steps: max |diff| "
+        f"{p_worst:.3e} (limit {step_bound:.3e} = 2 x the summed lr), "
+        f"{n_moved} of {n_el} elements beyond 1e-6 relative")
+    del res, params, batch
+
+    # crash and restart on the card
+    ccfg = reduced(get_arch(TRAIN_ARCH), **CRASH_CFG)
+    cparams = init_params(ccfg, torch.Generator().manual_seed(SEED),
+                          torch.float32)
+    kw = dict(steps=30, ckpt_every=10, batch=4, seq=128,
+              grad_compression=True, n_micro=2)
+    runs = {}
+    scratch = ROOT / "build" / "ckpt"
+    scratch.mkdir(parents=True, exist_ok=True)
+    for fail in (17, -1):
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            runs[fail] = train(ccfg, cparams, TrainConfig(
+                ckpt_dir=d, fail_at_step=fail, **kw), device="cuda")
+    crashed, clean = runs[17], runs[-1]
+    assert crashed["restarts"] == 1 and crashed["final_step"] == 30
+    assert clean["restarts"] == 0 and len(clean["losses"]) == 30
+    assert len(crashed["losses"]) == 37
+    assert crashed["losses"][-1] < crashed["losses"][0]
+    before, after = crashed["losses"][:17], crashed["losses"][17:]
+    np.testing.assert_allclose(before, clean["losses"][:17], **CRASH_LOSS)
+    np.testing.assert_allclose(after, clean["losses"][10:], **CRASH_LOSS)
+    same_before = sum(a == b for a, b in zip(before, clean["losses"][:17]))
+    same_after = sum(a == b for a, b in zip(after, clean["losses"][10:]))
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(crashed["losses"], clean["losses"][:17]
+                    + clean["losses"][10:]))
+    log(f"crash and restart on {smi} (layers {ccfg.n_layers}, d_model "
+        f"{ccfg.d_model}, compression, n_micro 2, crash at step 17 of 30, "
+        f"restored from step 10): restarts {crashed['restarts']}, final "
+        f"step {crashed['final_step']}, loss {crashed['losses'][0]:.4f} -> "
+        f"{crashed['losses'][-1]:.4f}; against the uninterrupted run: "
+        f"{same_before} of 17 steps before the crash and {same_after} of 20 "
+        f"replayed and later steps bit-identical, worst relative difference "
+        f"{worst:.2e} (limit {CRASH_LOSS['rtol']}); the first replayed "
+        f"step {'equals' if after[0] == clean['losses'][10] else 'differs from'}"
+        f" the uninterrupted step 10 bit for bit")
+    del runs, crashed, clean, cparams
+
+    # ssm and hybrid: forward-only kernels on the card refuse autograd
+    for arch in ("zamba2-2.7b", "mamba2-130m"):
+        rcfg = reduced(get_arch(arch))
+        rp = init_params(rcfg, torch.Generator(device="cuda").manual_seed(
+            SEED), torch.float32)
+        rb = _train_batch(rcfg, 0, 2, 64, "cuda")
+        try:
+            value_and_grad(lambda pp, bb: loss_fn(rcfg, pp, bb), rp, rb)
+        except NotImplementedError as e:
+            log(f"{arch} ({rcfg.family}) loss_fn under autograd on the card "
+                f"raises NotImplementedError: {e}")
+        else:
+            raise AssertionError(f"{arch}: loss_fn(...).backward() ran on "
+                                 f"the card through forward-only kernels")
+        with torch.no_grad():
+            assert math.isfinite(float(loss_fn(rcfg, rp, rb)))
+    torch.cuda.empty_cache()
+
+
 # Phase 4's bf16 check (``norm_check``): at every teacher-forced step the
 # card's logits may lie at most NORM_FACTOR times as far (L2 over all rows)
 # from an fp32 anchor as the plain bf16 path's on the CPU, plus
@@ -2418,6 +2876,7 @@ def main() -> int:
     phase2_kernels(rows)
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
+    phase2_backward_kernels(rows)
     phase2_coherence_sim(rows)
     stamp("phase 2")
     sim_counts = phase3_simulator_path(smi)
@@ -2430,6 +2889,8 @@ def main() -> int:
     stamp("phase 3 (wave paths)")
     kimi_counts = phase3_kimi_path(smi)
     stamp("phase 3 (kimi-k2 paged path)")
+    train_counts = phase3_train_path(smi)
+    stamp("phase 3 (training path)")
     phase4_card_vs_cpu(smi)
     stamp("phase 4 (paged path)")
     phase4_fleet_card_vs_cpu(smi)
@@ -2438,20 +2899,25 @@ def main() -> int:
     stamp("phase 4 (kimi-k2 paged lane)")
     phase4_wave_card_vs_cpu(smi)
     stamp("phase 4 (wave paths)")
+    phase4_train_card_vs_cpu(smi)
+    stamp("phase 4 (training path)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
             "unfused_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
-    # main path); K8's rows count their variant's
+    # main path; K10 and K11: the training path); K8's and K11's rows
+    # count their variant's
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
-                   "simulator": (sim_counts, {}), **wave_counts}
+                   "simulator": (sim_counts, {}), "train": train_counts,
+                   **wave_counts}
     for r in rows:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])
         r["launches"] = (v.get(wrapper, {}).get(r["variant"], 0)
-                         if wrapper == "rmsnorm" else c.get(wrapper, 0))
+                         if wrapper in ("rmsnorm", "rmsnorm_backward")
+                         else c.get(wrapper, 0))
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")

@@ -13,8 +13,9 @@ block is one dict in both packages.  Leaves arrive as numpy arrays (bf16 ones as
 ``bfloat16``, which torch cannot wrap directly, so they travel as int16
 bits).  Element counts and bytes are unchanged, so the serving cluster's
 ``param_bytes`` and flops-per-token charges match the JAX cluster's.
-:func:`sim_state_from_jax` carries the coherence simulator's state across
-the same way (its tests start both simulators from one state).
+:func:`opt_state_from_jax` carries the AdamW state (m, v, step) across
+the same way (the training tests start both packages from one state), and
+:func:`sim_state_from_jax` the coherence simulator's.
 """
 from __future__ import annotations
 
@@ -67,6 +68,17 @@ def _index(x, i):
     if isinstance(x, dict):
         return {k: _index(v, i) for k, v in x.items()}
     return x[i].clone()
+
+
+def opt_state_from_jax(state: Mapping[str, Any], device="cpu") -> dict:
+    """The JAX package's AdamW state (``repro.optim.adamw.init``, or one
+    its ``update`` returned; numpy leaves) as the port's: ``m`` and ``v``
+    through :func:`params_from_jax` (fp32, unstacked like the
+    parameters), ``step`` a 0-d int32 tensor."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "step": tensor_from_numpy(np.asarray(state["step"], np.int32),
+                                      device)}
 
 
 def sim_state_from_jax(st: Mapping[str, Any], device="cpu") -> dict:

@@ -1,9 +1,11 @@
 """Distribution layer of the port (``repro.dist``).
 
-Only the deterministic host mirrors of the device collectives
-(:mod:`.collectives`) are ported: the sharded lease directory's per-wave
-shard exchange rides them.  The device collectives, sharding rules and
-gradient compression belong to the training side and are not ported yet.
+:mod:`.collectives` holds the gradient collectives of one process -- int8
+error-feedback compression and microbatch accumulation -- and the
+deterministic host mirrors of the device collectives (the sharded lease
+directory's per-wave shard exchange rides them).  The device collectives
+themselves and the sharding rules are not ported yet (``ROADMAP.md``
+item 6).
 """
 from . import collectives
 

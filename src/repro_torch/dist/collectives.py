@@ -1,6 +1,17 @@
-"""Deterministic numpy mirrors of the tiled device collectives.
+"""Gradient compression and microbatching, and the deterministic numpy
+mirrors of the tiled device collectives (the port of
+``repro.dist.collectives``).
 
-The port of ``repro.dist.collectives.np_psum`` / ``np_all_gather`` /
+``compress_grads`` quantizes each gradient leaf to int8 with a per-leaf
+scale and carries the quantization error forward as a residual (error
+feedback), so the *cumulative* dequantized sum tracks the true gradient
+sum to within one quantization step.  ``torch.round`` rounds half to even,
+as ``jnp.round`` does.  ``microbatch_grads`` accumulates gradients over
+``n_micro`` equal slices of the batch in fp32, in slice order (the JAX
+package's ``lax.scan``).  The device collectives (``psum`` and the rest,
+``collectives.py:111-141``) are not ported yet (``ROADMAP.md`` item 6).
+
+The numpy mirrors are the port of ``np_psum`` / ``np_all_gather`` /
 ``np_reduce_scatter`` / ``np_all_to_all`` (``collectives.py:144-176``):
 lists of per-device arrays in, the same out, with the shapes and semantics
 of the tiled ``psum`` / ``all_gather`` / ``psum_scatter`` /
@@ -10,12 +21,87 @@ routes every directory wave's per-shard flit counts through
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["np_psum", "np_all_gather", "np_reduce_scatter",
-           "np_all_to_all"]
+from ..tree import leaves, tree_map, unflatten, value_and_grad
+
+__all__ = ["init_residual", "compress_grads", "decompress_grads",
+           "microbatch_grads", "np_psum", "np_all_gather",
+           "np_reduce_scatter", "np_all_to_all"]
+
+Tree = Any
+
+
+def init_residual(grads: Tree) -> Tree:
+    """Zero error-feedback residual matching the gradient tree (fp32)."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)
+
+
+def _quantize(e):
+    scale = torch.max(torch.abs(e)) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(e / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def compress_grads(grads: Tree, residual: Tree) -> Tuple[Tree, Tree]:
+    """Returns ((int8_tree, scale_tree), new_residual).
+
+    Each leaf is quantized as ``q = round((g + r) * 127 / max|g + r|)``;
+    the new residual is the leftover ``(g + r) - dequant(q)``.
+    """
+    qs, scales, res = [], [], []
+    for g, r in zip(leaves(grads), leaves(residual)):
+        e = g.float() + r
+        q, scale = _quantize(e)
+        qs.append(q)
+        scales.append(scale)
+        res.append(e - q.float() * scale)
+    return ((unflatten(grads, qs), unflatten(grads, scales)),
+            unflatten(grads, res))
+
+
+def decompress_grads(compressed) -> Tree:
+    """Inverse of :func:`compress_grads`: int8 * scale -> fp32 gradients."""
+    qs, scales = compressed
+    return tree_map(lambda q, s: q.float() * s, qs, scales)
+
+
+def microbatch_grads(loss_fn: Callable[[Tree, Tree], torch.Tensor],
+                     params: Tree, batch: Tree, n_micro: int
+                     ) -> Tuple[torch.Tensor, Tree]:
+    """Mean (loss, grads) over ``n_micro`` equal batch slices.
+
+    ``loss_fn(params, microbatch)`` must be a *mean* loss; with equal slice
+    sizes the accumulated mean equals the full-batch value to fp32
+    rounding.  Gradients accumulate in fp32 in slice order and come back
+    in the parameters' dtypes.
+    """
+    n_micro = int(n_micro)
+    if n_micro <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    for x in batch.values():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch dim {x.shape[0]} not divisible by "
+                             f"n_micro={n_micro}")
+    acc_loss = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    for i in range(n_micro):
+        mb = {k: x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:])[i]
+              for k, x in batch.items()}
+        loss, grads = value_and_grad(loss_fn, params, mb)
+        acc = tree_map(lambda a, g: a + g.float(), acc, grads)
+        acc_loss = acc_loss + loss.float()
+        del grads
+    inv = 1.0 / n_micro
+    return acc_loss * inv, tree_map(lambda g, p: (g * inv).to(p.dtype), acc,
+                                    params)
 
 
 def np_psum(shards: Sequence[np.ndarray]) -> List[np.ndarray]:

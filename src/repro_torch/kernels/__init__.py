@@ -5,6 +5,9 @@ Each subpackage is ``kernel.py`` (the ctypes wrapper with its launch count),
 ``ref.py`` (the plain PyTorch version); CUDA sources live in ``csrc/`` and
 build at first use (:mod:`._build`).  A wrapper given a CPU tensor runs
 the plain version; given a CUDA tensor it launches its kernel or raises.
+K6 and K8 (plain, add) are differentiable through their ``ops``
+(``torch.autograd.Function``s whose backward launches K10 and K11); every
+other wrapper is forward-only and raises under autograd (:mod:`._guard`).
 """
 from __future__ import annotations
 
@@ -14,8 +17,8 @@ from typing import Callable, Dict
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper of the port by name; each carries an integer
     ``launches`` that counts the launches of its kernel (and nothing
-    else); a wrapper with several kernels (K4, K7) also counts them by
-    variant in ``variants``."""
+    else); a wrapper with several kernels or variants (K4, K7, K8, K11)
+    also counts them by variant in ``variants``."""
     from .coherence_sim import kernel as cs
     from .decode_attention import kernel as da
     from .flash_attention import kernel as fa
@@ -29,8 +32,10 @@ def wrappers() -> Dict[str, Callable]:
             "paged_decode": da.paged_decode,
             "dense_decode": da.dense_decode,
             "flash_prefill": fa.flash_prefill,
+            "flash_backward": fa.flash_backward,
             "ssd_chunk": ss.ssd_chunk,
             "rmsnorm": rn.rmsnorm_2d,
+            "rmsnorm_backward": rn.rmsnorm_backward,
             "sim_run": cs.sim_run}
 
 

@@ -116,6 +116,11 @@ SIGNATURES = {
                          + [_VP] * 3),
     "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
                         _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
+    "tardis_flash_backward": ([_VP] * 10 + [_I32] * 6 + [_I64] * 6
+                              + [_I32] * 3 + [_F32, _I32, _I32]),
+    "tardis_rmsnorm_backward": ([_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP,
+                                 _I64, _VP, _VP, _I32, _I32, _I32, _F32,
+                                 _I32, _I32]),
     "tardis_sim_run": [_VP, _I32, _VP, _I32, _I32, _VP],
     "tardis_l2_chase": [_VP, _I32, _VP, _VP],
 }

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from .._build import launch, ptr
+from .._guard import forbid_grad
 from . import ref
 
 MAX_CORES = 256        # each of the warp's 32 lanes holds at most 8 cores
@@ -102,6 +103,7 @@ def sim_run(st, geom, proto: str):
     """K9.  Run the simulation ``st`` (``init_state(geom, ...)``) under
     ``proto`` ("tardis" | "directory") to the end of the JAX loop, in
     place; returns ``st``."""
+    forbid_grad("K9 sim_run", st)
     if proto not in ("tardis", "directory"):
         raise ValueError(f"unknown protocol {proto!r}")
     directory = proto == "directory"

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr, sm_count
+from .._guard import forbid_grad
 from .ref import dense_decode_attention_ref, paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +55,7 @@ _DENSE_PAIRS = ((torch.float32, torch.float32),
 
 def paged_decode(q, cur_k, cur_v, pool_rows, page_rows, lengths, *,
                  chunk: int, k_off: int, v_off: int, scale: float = None):
+    forbid_grad("K4 paged_decode", q, cur_k, cur_v, pool_rows)
     b, hkv, g, dh = q.shape
     dev = q.device
     if scale is None:
@@ -156,6 +158,7 @@ def dense_decode(q, k_cache, v_cache, kv_len, *, scale: float = None):
     strides; ``kv_len``: the valid slots, an int or a 0-d int32 tensor
     (on the card it stays there: the kernel reads it through a pointer).
     Returns (B, Hkv, G, Dh) in q's dtype."""
+    forbid_grad("K5 dense_decode", q, k_cache, v_cache)
     b, hkv, g, dh = q.shape
     dev = q.device
     if scale is None:

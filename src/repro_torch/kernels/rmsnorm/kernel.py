@@ -1,4 +1,5 @@
-"""Wrapper of the RMSNorm kernel K8 (CUDA C++ in ``csrc/rmsnorm.cu``).
+"""Wrappers of the RMSNorm kernel K8 (CUDA C++ in ``csrc/rmsnorm.cu``) and
+of its backward K11 (``csrc/rmsnorm_backward.cu``).
 
 ``rmsnorm_2d`` takes x (R, D) whose last dim is contiguous and whose rows
 lie at any stride (the kernel takes the row stride; nothing is copied),
@@ -11,13 +12,24 @@ three variants, by the keyword given:
     dtype, y the SSD scan's float32 output (Mamba2's gated norm).
 On CUDA tensors it launches K8 and counts the launch (``launches``, and
 by variant in ``variants``); on CPU tensors it runs the plain version.
+K8 alone is forward-only: autograd reaches the plain and add variants
+through ``ops.rmsnorm`` / ``ops.add_rmsnorm``; the gate variant has no
+backward yet.
+
+``rmsnorm_backward(g, w, dy, dh=None)`` is K11: (dx, dw) of the plain
+variant over g = x, or of the add variant over g = h with dh the gradient
+of h (dx = dr).  On CUDA tensors it launches K11 (two kernels, counted as
+one launch; ``variants`` counts "plain" and "add"), on CPU tensors it runs
+the closed-form plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import launch, ptr
-from .ref import add_rmsnorm_ref, gated_rmsnorm_ref, rmsnorm_ref
+from .._guard import forbid_grad
+from .ref import (add_rmsnorm_ref, gated_rmsnorm_ref, rmsnorm_backward_ref,
+                  rmsnorm_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"plain": 0, "add": 1, "gate": 2}
@@ -27,6 +39,10 @@ MAX_ROW_BYTES = 512 * 4 * 16
 
 
 def rmsnorm_2d(x, w, *, eps: float = 1e-5, residual=None, gate=None):
+    forbid_grad("K8 rmsnorm_2d" + (" (gate variant)" if gate is not None
+                                   else ""), x, w, residual, gate,
+                use="" if gate is not None else
+                "ops.rmsnorm and ops.add_rmsnorm are differentiable (K11)")
     if x.dim() != 2 or w.dim() != 1 or w.shape[0] != x.shape[1]:
         raise ValueError("rmsnorm_2d takes x (R, D) and w (D,)")
     if residual is not None and gate is not None:
@@ -76,3 +92,61 @@ def rmsnorm_2d(x, w, *, eps: float = 1e-5, residual=None, gate=None):
 
 rmsnorm_2d.launches = 0
 rmsnorm_2d.variants = {}    # launches per variant
+
+
+# the backward's dw partials: at most this many CTAs, each a row of D fp32
+# (fixed, so the order of dw's sums -- and its bits -- do not depend on the
+# card)
+BWD_CTAS = 264
+
+
+def rmsnorm_backward(g, w, dy, *, eps: float = 1e-5, dh=None,
+                     variant: str = None):
+    """K11: (dx, dw) for rows g (R, D) -- x, or the add variant's h --
+    with dy (and dh) the gradients of the norm's output (and of h), all of
+    g's shape and dtype, last dim contiguous, any row stride.  ``variant``
+    names the forward's variant for the launch count ("plain" or "add";
+    default: "add" where dh is given -- an add whose h has no gradient
+    passes none)."""
+    forbid_grad("K11 rmsnorm_backward", g, w, dy, dh)
+    if g.dim() != 2 or w.dim() != 1 or w.shape[0] != g.shape[1]:
+        raise ValueError("rmsnorm_backward takes g (R, D) and w (D,)")
+    for name, t in (("dy", dy), ("dh", dh)):
+        if t is not None and (t.shape != g.shape or t.device != g.device
+                              or t.dtype != g.dtype):
+            raise ValueError(f"{name} must be g's shape and dtype, on its "
+                             f"device")
+    if w.device != g.device:
+        raise ValueError("all operands must be on one device")
+    if g.device.type != "cuda":
+        return rmsnorm_backward_ref(g, w, dy, eps, dh=dh)
+    if g.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError("the rmsnorm backward kernel takes float32 or "
+                        "bfloat16 rows and weights")
+    if any(t.stride(1) != 1 for t in (g, dy, dh) if t is not None) \
+            or not w.is_contiguous():
+        raise ValueError("the rmsnorm backward kernel needs a contiguous "
+                         "last dim")
+    r, d = g.shape
+    if -(-d // 8) > 1024:
+        raise ValueError(f"rows of {d} values exceed what the rmsnorm "
+                         f"backward kernel holds (8192)")
+    dx = torch.empty((r, d), dtype=g.dtype, device=g.device)
+    dw = torch.empty_like(w)
+    if r == 0:
+        return dx, dw.zero_()
+    n = min(r, BWD_CTAS)
+    partial = torch.empty((n, d), dtype=torch.float32, device=g.device)
+    launch("tardis_rmsnorm_backward", ptr(g), g.stride(0), ptr(dy),
+           dy.stride(0), ptr(dh), 0 if dh is None else dh.stride(0), ptr(w),
+           ptr(dx), d, ptr(partial), ptr(dw), r, d, n, float(eps),
+           _DTYPES[g.dtype], _DTYPES[w.dtype])
+    variant = variant or ("plain" if dh is None else "add")
+    rmsnorm_backward.launches += 1
+    rmsnorm_backward.variants[variant] = \
+        rmsnorm_backward.variants.get(variant, 0) + 1
+    return dx, dw
+
+
+rmsnorm_backward.launches = 0
+rmsnorm_backward.variants = {}    # launches per variant

@@ -1,7 +1,8 @@
 """Plain versions of the RMSNorm kernel (the port of
 ``repro.kernels.rmsnorm.ref``): widen to fp32, mean of squares, scale by
 ``rsqrt`` and the fp32-widened weight, round once to x's dtype -- and the
-two fused prologues, each exactly the eager composition it replaces."""
+two fused prologues, each exactly the eager composition it replaces --
+and of its backward K11 (the closed form, plain and add)."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +28,23 @@ def gated_rmsnorm_ref(y, z, w, eps: float = 1e-5):
     product normed."""
     dt = z.dtype
     return rmsnorm_ref(y.to(dt) * F.silu(z.float()).to(dt), w, eps)
+
+
+def rmsnorm_backward_ref(g, w, dy, eps: float = 1e-5, dh=None):
+    """Plain version of the RMSNorm-backward kernel K11: the closed form in
+    fp32 (not autograd).  ``g`` is the row that was normed (x, or the add
+    variant's h), ``dy`` the gradient of the norm's output and ``dh`` that
+    of the add variant's h (None: none).  With rstd = rsqrt(mean(g^2) +
+    eps), xhat = g rstd, gw = dy w and c = mean(gw xhat):
+    dx = rstd (gw - xhat c) (+ dh) in g's dtype, dw = sum over rows of
+    dy xhat in w's dtype."""
+    gf, dyf, wf = g.float(), dy.float(), w.float()
+    rstd = torch.rsqrt((gf * gf).mean(dim=-1, keepdim=True) + eps)
+    xh = gf * rstd
+    gw = dyf * wf
+    c = (gw * xh).mean(dim=-1, keepdim=True)
+    dx = rstd * (gw - xh * c)
+    if dh is not None:
+        dx = dx + dh.float()
+    dw = (dyf * xh).reshape(-1, g.shape[-1]).sum(dim=0)
+    return dx.to(g.dtype), dw.to(w.dtype)

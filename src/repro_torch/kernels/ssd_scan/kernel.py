@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr, sm_count
+from .._guard import forbid_grad
 from .ref import ssd_chunk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,6 +35,7 @@ MMA_MAX_HEADS = 8
 
 
 def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
+    forbid_grad("K7 ssd_chunk", x, dt, cum, B, C)
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = -(-s // chunk)

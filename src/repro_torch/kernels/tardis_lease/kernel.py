@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr
+from .._guard import forbid_grad
 from . import ref
 
 LANES = 128
@@ -42,6 +43,7 @@ def lease_pass(wts, rts, req, masks, pts_vec, lease):
     lease an int (static policy) or an (N,) int32 tensor (predictor).
     Returns (new_rts (N,), flags (G, N), write_ts (), new_pts (G,)): on
     CUDA tensors ONE launch (one thread-block cluster), G <= MAX_GROUPS."""
+    forbid_grad("K1 lease_pass", wts, rts, req, masks, pts_vec, lease)
     n = wts.shape[0]
     g = masks.shape[0]
     dev = wts.device
@@ -74,6 +76,7 @@ def write_advance(wts, rts, mask, pts: int):
     tables' device: on CUDA tensors ONE launch, of
     :func:`write_advance_ctas` CTAs (more than one: a thread-block
     cluster)."""
+    forbid_grad("K2 write_advance", wts, rts, mask)
     n = wts.shape[0]
     dev = wts.device
     for name, t in (("wts", wts), ("rts", rts), ("mask", mask)):
@@ -127,6 +130,7 @@ def _check_pool_idx(pool, idx, col_lo, width):
 
 def gather_rows(pool, idx, *, col_lo: int = 0, width: int = None):
     """K3 gather: ``pool[idx, col_lo:col_lo+width]`` -> (n, width)."""
+    forbid_grad("K3 gather_rows", pool, idx)
     if width is None:
         width = pool.shape[1] - col_lo
     _col_blocks(col_lo, width)
@@ -146,6 +150,7 @@ def scatter_rows(pool, idx, rows, *, col_lo: int = 0):
     """K3 scatter, IN PLACE: ``pool[idx, col_lo:col_lo+w] = rows`` (rows
     already in the pool's dtype and window width); a duplicate id keeps
     the last listed row.  Returns ``pool``."""
+    forbid_grad("K3 scatter_rows", pool, idx, rows)
     n, width = rows.shape
     _col_blocks(col_lo, width)
     _check_pool_idx(pool, idx, col_lo, width)

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rmsnorm.ref import (add_rmsnorm_ref, gated_rmsnorm_ref,
                                    rmsnorm_ref)
@@ -112,3 +113,42 @@ def apply_rope(x, positions, theta: float, mrope: bool = False):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked softmax cross-entropy: never materializes (B, S, V) logits
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h, w_head, lab):
+    """(sum of the chunk's token losses, its live-token count), fp32."""
+    logits = (h @ w_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab.clamp_min(0).long()[..., None])[
+        ..., 0]
+    mask = (lab >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(hidden, w_head, labels, chunk: int = 512):
+    """Mean token cross-entropy over sequence chunks (the port of
+    ``repro.models.layers.chunked_xent``).
+
+    hidden: (B, S, D); w_head: (D, V); labels: (B, S) int (-1 = masked).
+    Each chunk's logits run under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` of its scan body), so the backward also
+    holds one chunk of logits at a time; the chunks' sums add in order,
+    as the scan's carry adds them.  Positions past the last whole chunk
+    are dropped, as in the JAX package.
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    n = s // chunk
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        loss, c = checkpoint(_xent_chunk, hidden[:, sl], w_head,
+                             labels[:, sl], use_reentrant=False)
+        tot = tot + loss
+        cnt = cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -26,9 +26,10 @@ from typing import Any, Dict
 import torch
 
 from ..configs.base import ArchConfig
+from ..tree import leaves as param_leaves  # every tensor of a param tree
 from .attention import attend, decode_attention
-from .layers import (add_rmsnorm, apply_rope, dense_init, rmsnorm, swiglu,
-                     swiglu_init)
+from .layers import (add_rmsnorm, apply_rope, chunked_xent, dense_init,
+                     rmsnorm, swiglu, swiglu_init)
 from .moe import moe_apply, moe_init
 from .ssm import ssm_block, ssm_init
 
@@ -238,14 +239,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def param_leaves(p):
-    """Every parameter tensor of a (nested) parameter dict / list."""
-    if isinstance(p, torch.Tensor):
-        return [p]
-    items = p.values() if isinstance(p, dict) else p
-    return [t for v in items for t in param_leaves(v)]
-
-
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -331,6 +324,19 @@ def _mlp_after(cfg, layer, x, y):
     if "moe" in layer:
         return h, moe_apply(layer["moe"], cfg, xn)
     return h, swiglu(layer["mlp"], xn)
+
+
+def loss_fn(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward`` (labels of -1 are
+    masked).  Differentiable on the CPU (plain code) and, for the dense,
+    vlm and moe families, on the card: K6 and K8 (plain, add) carry their
+    backward kernels K10 and K11.  The ssm and hybrid families raise on
+    the card under autograd (K7 and K8's gate variant are forward-only).
+    The JAX package rematerializes each layer (``jax.checkpoint``) to save
+    memory; the port keeps the layers' activations (the chunked loss is
+    the one checkpointed part)."""
+    hidden = forward(cfg, p, batch)
+    return chunked_xent(hidden, _head(cfg, p), batch["labels"])
 
 
 def logits_fn(cfg, p, hidden):

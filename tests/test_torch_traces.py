@@ -143,8 +143,8 @@ def test_storage_bits_matches_jax(n_cores, scheme):
 
 
 def test_port_imports_without_jax():
-    """Every module of repro_torch (the simulator's too) imports with
-    ``jax`` and ``repro`` made unimportable."""
+    """Every module of repro_torch (the simulator's and the training
+    path's too) imports with ``jax`` and ``repro`` made unimportable."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -157,6 +157,7 @@ def test_port_imports_without_jax():
             importlib.import_module(name)
         assert "jax" not in [m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None]
+        print(" ".join(names))
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -164,8 +165,13 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     n = int(out.stdout.split()[-1])
     assert n >= 50, n
+    imported = set(out.stdout.split()[:-1])
     for mod in ("core.simulator", "core.directory", "core.geometry",
                 "core.traces", "core.check", "kernels.coherence_sim.kernel",
-                "kernels.coherence_sim.ref"):
+                "kernels.coherence_sim.ref", "tree", "kernels._guard",
+                "optim.adamw", "data.pipeline", "checkpoint.ckpt",
+                "dist.collectives", "runtime.train_loop", "runtime.elastic",
+                "launch.train"):
         assert (ROOT / "src" / "repro_torch" /
                 (mod.replace(".", "/") + ".py")).exists(), mod
+        assert "repro_torch." + mod in imported, mod
