@@ -96,12 +96,17 @@ Phases (any failure exits non-zero; nothing is caught):
      fits;
   5. the kernel JSON line, then the result line.
 The training path (phases 2-4): phase 2 holds K10 (the flash-attention
-backward: dq, dk, dv) against its plain version (the closed form over the
-naive softmax) at the training shape (B 4, S 1024, 32 / 4 heads, Dh 64)
-and at the paged suffix's q_offset / kv_len, and K11 (the RMSNorm
-backward, plain and add) at (4096, 2048), each in fp32 (2e-4) and bf16
-(3e-2) with two calls bit-identical, beside SDPA's and ``F.rms_norm``'s
-backward (eager ``torch.autograd.grad``); phase 3 runs ``runtime.train``
+backward: dq, dk, dv, reading the LSE that K6 wrote) against its plain
+version (the closed form over the naive softmax) at the training shape
+(B 4, S 1024, 32 / 4 heads, Dh 64) and at the paged suffix's q_offset /
+kv_len, and K11 (the RMSNorm backward, plain and add) at (4096, 2048),
+each in fp32 (2e-4) and bf16 (3e-2) with two calls bit-identical, beside
+SDPA's and ``F.rms_norm``'s backward (eager ``torch.autograd.grad``);
+K6's LSE against the plain LSE (2e-4); K10's kernels' times (D, dq,
+dk/dv, the GQA partials' sum), its variant, its schedule's largest and
+mean CTA work and its two bounds (fp32 SIMT; three TF32 products); K6 at
+the training shape in fp32 with and without its LSE write beside SDPA's
+fp32 forward; phase 3 runs ``runtime.train``
 on full-width, full-depth tinyllama-1.1b in fp32 weights (4 steps of
 4 x 1024 tokens, no checkpoint; the earlier paths' weights freed first)
 with the launch counts set to 0 before and read after (K6 and K10 22 a
@@ -169,6 +174,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+TF32_TC_FLOPS = 495e12           # H100 SXM TF32 tensor cores, dense
 BF16_TC_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 BF16 = dict(rtol=3e-2, atol=3e-2)
 BF16_ULP = dict(rtol=2 ** -7, atol=1e-5)  # one bf16 rounding step apart
@@ -943,17 +949,69 @@ K11_ROWS = (("rmsnorm_backward.train", "train", "plain", 4096, 2048),
             ("rmsnorm_backward.train_add", "train", "add", 4096, 2048))
 
 
+def k10_schedule(b, sq, skv, h, hkv, dh, q_off, kv_len, causal=True):
+    """K10's CTAs and their work in tiles, from ``flash_backward.cu``'s
+    loop bounds: the dq kernel's CTAs (64 query rows, head, batch) walk
+    the KV tiles they see, the dk/dv kernel's (64 keys, query head, batch)
+    the query tiles that see them (tiles of 64 for Dh <= 64, else 32)."""
+    bt = 64 if dh <= 64 else 32
+
+    def kv_end(qb):
+        last = q_off + min(sq, (qb + 1) * 64) - 1
+        end = min(kv_len, last + 1) if causal else kv_len
+        return max(0, min(end, skv))
+
+    dq = [-(-kv_end(qb) // bt) for qb in range(-(-sq // 64))]
+    nqt = -(-sq // bt)
+    dkv = [0 if kb * 64 >= kv_len else
+           nqt - (max(0, kb * 64 - q_off) // bt if causal else 0)
+           for kb in range(-(-skv // 64))]
+    return dict(dq_ctas=len(dq) * h * b, dq_max=max(dq),
+                dq_mean=sum(dq) / len(dq), dkv_ctas=len(dkv) * h * b,
+                dkv_max=max(dkv), dkv_mean=sum(dkv) / len(dkv))
+
+
+def kernel_times(fn, reps=5):
+    """{kernel: device us a call} of the device kernels ``fn`` runs, read
+    by ``torch.profiler`` over ``reps`` calls (K10's by their short
+    names: delta, dq, dkv, dkv_sum)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"flash_bwd_(\w+?)<", e.key)
+        name = m.group(1) if m else e.key[:40]
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / reps
+    return out
+
+
 def phase2_backward_kernels(rows):
     """K10 and K11 against their plain versions on the card: each shape in
-    fp32 (2e-4) and bf16 (3e-2), two calls bit-identical; then each row's
+    fp32 (2e-4) and bf16 (3e-2), two calls bit-identical, K10 reading the
+    LSE that K6 wrote (held to the plain LSE within 2e-4); then each row's
     device time (graph replay), eager call, plain version (eager), bound
     and library yardstick (eager ``torch.autograd.grad`` through SDPA,
     ``is_causal`` / mask and ``enable_gqa``, for K10; through
-    ``F.rms_norm`` for K11), in the training path's dtype, fp32."""
+    ``F.rms_norm`` for K11), in the training path's dtype, fp32.  K10's
+    row also prints its kernels' times, its variant, its schedule and its
+    two bounds (fp32 SIMT at 67 TFLOP/s; three TF32 products at 495); K6
+    gets a row at the training shape in fp32 (with and without its LSE
+    write) beside SDPA's fp32 forward."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_backward_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_ref, flash_attention_lse_ref,
+        flash_attention_ref)
     from repro_torch.kernels.rmsnorm import kernel as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
     F = torch.nn.functional
@@ -988,29 +1046,55 @@ def phase2_backward_kernels(rows):
         q32, k32, v32 = randn(b, sq, h, dh), randn(b, skv, hkv, dh), \
             randn(b, skv, hkv, dh)
         do32 = randn(b, sq, h, dh)
-        errs = {}
-        for tag, dt, tol in (("fp32", f32, FP32), ("bf16", b16, BF16)):
-            q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
-            o = FK.flash_prefill(q, k, v, **kw)
-            got = FK.flash_backward(q, k, v, o, do, **kw)
-            again = FK.flash_backward(q, k, v, o, do, **kw)
-            want = flash_attention_backward_ref(q, k, v, o, do, **kw)
-            errs[tag] = held(f"K10 {name} {tag}", got, again, want, tol)
-            del got, again, want
-        log(f"K10 {name} max |err| (dq, dk, dv): {errs}; two calls "
-            f"bit-identical")
-        q, k, v, do = q32, k32, v32, do32
-        o = FK.flash_prefill(q, k, v, **kw)
         live = torch.clamp(torch.minimum(
             q_off + torch.arange(sq, device=dev) + 1,
             torch.tensor(kv_len, device=dev)), min=0)
         # operations: five Dh-long dot products per (query, live key, head)
-        # -- s, dP, dv, dq, dk -- at fp32's 67 TFLOP/s; bytes: q, k, v, o,
-        # dO read and dq, dk, dv written once (fp32)
+        # -- s, dP, dv, dq, dk -- at fp32's 67 TFLOP/s, or as three TF32
+        # products each at the TF32 tensor cores' 495 (bf16: once at 989);
+        # bytes: q, k, v, o, dO, the LSE read and dq, dk, dv written once
         nops = 10 * b * h * dh * int(live.sum())
         kv_rows = min(kv_len, q_off + sq)
+        errs, lse_errs, times = {}, {}, {}
+        for tag, dt, tol in (("fp32", f32, FP32), ("bf16", b16, BF16)):
+            q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
+            o, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
+            lse_want = flash_attention_lse_ref(q, k, **kw)
+            torch.testing.assert_close(lse, lse_want, **FP32)
+            lse_errs[tag] = max_err(lse, lse_want)
+            got, variant = variant_of(FK.flash_backward, lambda: (
+                FK.flash_backward(q, k, v, o, do, lse=lse, **kw)))
+            assert variant == ("tf32x3" if dt == f32 else "bf16"), variant
+            again = FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
+            want = flash_attention_backward_ref(q, k, v, o, do, **kw)
+            errs[tag] = held(f"K10 {name} {tag}", got, again, want, tol)
+            del got, again, want
+            times[tag] = (variant, graph_ms(
+                lambda: FK.flash_backward(q, k, v, o, do, lse=lse, **kw),
+                5), kernel_times(
+                lambda: FK.flash_backward(q, k, v, o, do, lse=lse, **kw)))
+        log(f"K10 {name} max |err| (dq, dk, dv): {errs}; two calls "
+            f"bit-identical; K6's LSE max |err| against the plain LSE: "
+            f"{lse_errs}")
+        sched = k10_schedule(b, sq, skv, h, hkv, dh, q_off, kv_len)
+        log(f"  {name} schedule (tiles a CTA): dq {sched['dq_ctas']} CTAs, "
+            f"max {sched['dq_max']}, mean {sched['dq_mean']:.2f}; dk/dv "
+            f"{sched['dkv_ctas']} CTAs, max {sched['dkv_max']}, mean "
+            f"{sched['dkv_mean']:.2f}")
+        simt_b = bound(0, nops)[0]
+        split_b = bound(0, 3 * nops, TF32_TC_FLOPS)[0]
+        for tag, (variant, ms, parts) in times.items():
+            log(f"  {name} {tag}: {variant} variant, {ms * 1e3:.2f} us "
+                f"(graph replay); kernels (us a call, profiler): "
+                + json.dumps({k: round(x, 2) for k, x in parts.items()})
+                + (f"; bounds: fp32 SIMT {simt_b * 1e3:.3f} us, three TF32 "
+                   f"products {split_b * 1e3:.3f} us" if tag == "fp32" else
+                   f"; bound: bf16 products "
+                   f"{bound(0, nops, BF16_TC_FLOPS)[0] * 1e3:.3f} us"))
+        q, k, v, do = q32, k32, v32, do32
+        o, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
         nbytes = 4 * (3 * b * sq * h * dh + 2 * b * kv_rows * hkv * dh
-                      + b * sq * h * dh + 2 * b * skv * hkv * dh)
+                      + b * sq * h + b * sq * h * dh + 2 * b * skv * hkv * dh)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         qpos = q_off + torch.arange(sq, device=dev)
@@ -1024,7 +1108,7 @@ def phase2_backward_kernels(rows):
                                                    enable_gqa=True))
         dot = do.transpose(1, 2)
         lib = torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-        got = FK.flash_backward(q, k, v, o, do, **kw)
+        got = FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
         for a, w in zip(got, lib):
             torch.testing.assert_close(a, w.transpose(1, 2), **FP32)
         big = sq * skv > 1 << 16
@@ -1033,24 +1117,74 @@ def phase2_backward_kernels(rows):
             return torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
 
-        t = timings(lambda q=q, k=k, v=v, o=o, do=do, kw=kw:
-                    FK.flash_backward(q, k, v, o, do, **kw),
+        t = timings(lambda q=q, k=k, v=v, o=o, do=do, lse=lse, kw=kw:
+                    FK.flash_backward(q, k, v, o, do, lse=lse, **kw),
                     lambda q=q, k=k, v=v, o=o, do=do, kw=kw:
                     flash_attention_backward_ref(q, k, v, o, do, **kw),
                     iters=5 if big else 20, plain_iters=2 if big else 20)
         t["library_ms"] = median_ms(library, 5 if big else 20,
                                     3 if big else 7)
+        log(f"  {name}: SDPA's eager backward {t['library_ms'] * 1e3:.2f} "
+            f"us, K10 {t['ms'] / t['library_ms']:.3f}x of it")
         add(dict(
             name=name, wrapper="flash_backward", path=path,
-            source="src/repro_torch/kernels/flash_attention/csrc/"
-            "flash_backward.cu", replaces="src/repro/kernels/"
-            "flash_attention/kernel.py:64", max_abs_err=errs["fp32"],
+            variant="tf32x3", source="src/repro_torch/kernels/"
+            "flash_attention/csrc/flash_backward.cu", replaces="src/repro/"
+            "kernels/flash_attention/kernel.py:64", max_abs_err=errs["fp32"],
             shape=f"B={b} Sq={sq} Skv={skv} q_offset={q_off} "
             f"kv_len={kv_len} H={h} Hkv={hkv} dh={dh} fp32 (library: eager "
-            f"autograd)", **t,
-            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops)))))
+            f"autograd; bound: three TF32 products, fp32 SIMT "
+            f"{simt_b * 1e3:.3f} us)", **t,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 3 * nops, TF32_TC_FLOPS)))))
         del q32, k32, v32, do32, q, k, v, do, o, qt, kt, vt, out, lib, got
         torch.cuda.empty_cache()
+
+    # --- K6 at the training shape, fp32, with its LSE write ----------------
+    b, s, h, hkv, dh = 4, 1024, 32, 4, 64
+    q, k, v = randn(b, s, h, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh)
+    out, lse = FK.flash_prefill(q, k, v, return_lse=True)
+    want = flash_attention_ref(q, k, v)
+    lse_want = flash_attention_lse_ref(q, k)
+    torch.testing.assert_close(out, want, **FP32)
+    torch.testing.assert_close(lse, lse_want, **FP32)
+    assert torch.equal(out, FK.flash_prefill(q, k, v))
+    err = max_err(out, want)
+    del out, want
+    no_lse_ms = graph_ms(lambda: FK.flash_prefill(q, k, v), 5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # operations: a QK dot and a PV product per (query, live key, head) at
+    # fp32's 67 TFLOP/s, or as three TF32 products each at the TF32 tensor
+    # cores' 495 (the tighter one, K10's yardstick); bytes: q, k, v read,
+    # the output and LSE written
+    nops = 4 * b * h * dh * (s * (s + 1) // 2)
+    nbytes = 4 * (2 * b * s * h * dh + 2 * b * s * hkv * dh + b * h * s)
+    simt_b = bound(nbytes, nops)[0]
+    row = dict(
+        name="flash_prefill.train", wrapper="flash_prefill", path="train",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_prefill.cu", replaces="src/repro/kernels/flash_attention/"
+        "kernel.py:64", max_abs_err=err, variant="simt",
+        shape=f"B={b} S={s} H={h} Hkv={hkv} dh={dh} fp32, LSE written "
+        f"(without: {no_lse_ms * 1e3:.2f} us; library: SDPA fp32 "
+        f"forward; bound: three TF32 products, fp32 SIMT "
+        f"{simt_b * 1e3:.3f} us)", **timings(
+            lambda: FK.flash_prefill(q, k, v, return_lse=True),
+            lambda: (flash_attention_ref(q, k, v),
+                     flash_attention_lse_ref(q, k)),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            iters=5, plain_iters=5),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, 3 * nops, TF32_TC_FLOPS))))
+    add(row)
+    log(f"  flash_prefill.train fp32: {row['ms'] * 1e3:.2f} us with the "
+        f"LSE write, {no_lse_ms * 1e3:.2f} us without; SDPA fp32 forward "
+        f"{row['library_ms'] * 1e3:.2f} us; bounds: fp32 SIMT "
+        f"{simt_b * 1e3:.3f} us, three TF32 products "
+        f"{row['bound_ms'] * 1e3:.3f} us")
+    del q, k, v, qt, kt, vt, lse, lse_want
+    torch.cuda.empty_cache()
 
     # --- K11 rmsnorm_backward ----------------------------------------------
     for name, path, variant, r, d in K11_ROWS:
@@ -2032,6 +2166,8 @@ def phase3_train_path(smi):
         assert variants[k] == {"plain": TRAIN_STEPS,
                                "add": TRAIN_STEPS * 2 * cfg.n_layers}, \
             f"{k} by variant: {variants[k]}"
+    assert variants["flash_backward"] == {
+        "tf32x3": TRAIN_STEPS * cfg.n_layers}, variants["flash_backward"]
     params, opt_state = out["params"], out["opt_state"]
     del out, opt_state
     gc.collect()
@@ -2906,8 +3042,8 @@ def main() -> int:
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
             "unfused_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
-    # main path; K10 and K11: the training path); K8's and K11's rows
-    # count their variant's
+    # main path; K10 and K11: the training path); K8's, K10's and K11's
+    # rows count their variant's
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
                    "simulator": (sim_counts, {}), "train": train_counts,
@@ -2916,7 +3052,8 @@ def main() -> int:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])
         r["launches"] = (v.get(wrapper, {}).get(r["variant"], 0)
-                         if wrapper in ("rmsnorm", "rmsnorm_backward")
+                         if wrapper in ("rmsnorm", "rmsnorm_backward",
+                                        "flash_backward")
                          else c.get(wrapper, 0))
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)

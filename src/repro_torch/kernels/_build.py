@@ -109,14 +109,14 @@ SIGNATURES = {
                             + [_I32] * 4 + [_VP, _VP]),
     "tardis_dense_decode": ([_VP] * 4 + [_I32] * 6 + [_I64] * 3
                             + [_F32, _I32, _I32, _I32, _VP]),
-    "tardis_flash_prefill": ([_VP] * 4 + [_I32] * 5 + [_I64] * 6
+    "tardis_flash_prefill": ([_VP] * 5 + [_I32] * 5 + [_I64] * 6
                              + [_I32] * 3 + [_F32, _I32, _I32, _VP]),
     "tardis_ssd_chunk": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
                          + [_VP] * 3 + [_I64] * 3 + [_I32] * 9
                          + [_VP] * 3),
     "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
                         _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
-    "tardis_flash_backward": ([_VP] * 10 + [_I32] * 6 + [_I64] * 6
+    "tardis_flash_backward": ([_VP] * 11 + [_I32] * 6 + [_I64] * 6
                               + [_I32] * 3 + [_F32, _I32, _I32]),
     "tardis_rmsnorm_backward": ([_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP,
                                  _I64, _VP, _VP, _I32, _I32, _I32, _F32,

@@ -10,10 +10,12 @@ pages.
 from __future__ import annotations
 
 from .kernel import dense_decode, paged_decode
-from .ref import dense_decode_attention_ref, paged_decode_attention_ref
+from .ref import (decode_attention_ref, dense_decode_attention_ref,
+                  paged_decode_attention_ref)
 
-__all__ = ["decode_attention", "dense_decode_attention_ref",
-           "paged_decode_attention", "paged_decode_attention_ref"]
+__all__ = ["decode_attention", "decode_attention_ref",
+           "dense_decode_attention_ref", "paged_decode_attention",
+           "paged_decode_attention_ref"]
 
 
 def decode_attention(q, k_cache, v_cache, kv_len):

@@ -1,8 +1,9 @@
 """Plain versions of the decode kernels (the port of
 ``repro.kernels.decode_attention.ref``).
 
-``dense_decode_attention_ref``: naive attention over the valid prefix of a
-dense cache (K5's plain version).  ``paged_decode_attention_ref``:
+``decode_attention_ref`` (also named ``dense_decode_attention_ref``):
+naive attention over the valid prefix of a dense cache (K5's plain
+version, the mirror of ``ops.decode_attention``).  ``paged_decode_attention_ref``:
 gather-then-attend -- materialize each request's pages into a dense cache,
 place the current token at slot ``lengths[b]`` and run the naive reference
 over the valid prefix (kv_len = lengths + 1); ``k_off`` / ``v_off`` are
@@ -15,10 +16,13 @@ import torch
 from ...models.attention import reference_attention
 
 
-def dense_decode_attention_ref(q, k_cache, v_cache, kv_len):
+def decode_attention_ref(q, k_cache, v_cache, kv_len):
     """q (B, 1, H, Dh); caches (B, T, Hkv, Dh); kv_len valid slots."""
     return reference_attention(q, k_cache, v_cache, causal=False,
                                kv_len=kv_len)
+
+
+dense_decode_attention_ref = decode_attention_ref
 
 
 def paged_decode_attention_ref(q, cur_k, cur_v, pool_rows, page_rows,

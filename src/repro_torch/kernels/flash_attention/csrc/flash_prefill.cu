@@ -77,10 +77,17 @@
 // * CTAs are issued longest-first (the last query rows walk the most
 //   tiles).
 // A view TMA cannot map (a stride TMA refuses) takes the SIMT kernel.
+//
+// The LSE for the backward (K10): given a non-null `lse`, both variants
+// also write each query row's log-sum-exp of its live scaled scores,
+// m * scale + log(l) from the row's running max and sum (fp32, (B, H,
+// Sq)), +inf on a row with no live key (l = 0), so that K10 need not
+// recompute it.  The serving paths pass null: nothing more is written.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -120,8 +127,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename TQ, typename TKV, int DC>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k,
-    const TKV* __restrict__ v, TQ* __restrict__ out, int sq, int hkv, int g,
-    int dh, long long qsb, long long qst, long long qsh, long long ksb,
+    const TKV* __restrict__ v, TQ* __restrict__ out,
+    float* __restrict__ lse, int sq, int hkv, int g, int dh, long long qsb, long long qst, long long qsh, long long ksb,
     long long kst, long long ksh, int q_offset, int kv_len, int causal,
     float scale) {
   const int b = blockIdx.z, hk = blockIdx.y;
@@ -264,6 +271,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       const int d = tx + 16 * c;
       if (d < dh) orow[d] = from_f32<TQ>(acc[i][c] * inv);
     }
+    if (lse && tx == 0)   // m is in scaled units here
+      lse[(static_cast<long long>(b) * h + hk * g + gi) * sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
@@ -490,9 +500,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_prefill_wgmma(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    int bsz, int sq, int hkv, int g, long long qsb, long long qst,
-    long long qsh, int q_vec, int q_offset, int kv_len, int causal,
-    float scale2) {
+    float* __restrict__ lse, int bsz, int sq, int hkv, int g, long long qsb,
+    long long qst, long long qsh, int q_vec, int q_offset, int kv_len,
+    int causal, float scale, float scale2) {
   constexpr int NA = (DH + 63) / 64;        // 64-column atoms of a row
   constexpr int kRing = ring_depth<NA>();
   constexpr int KS = DH / 16;               // k-steps of Q.K^T
@@ -770,6 +780,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_prefill_wgmma(
     __nv_bfloat16* orow = out + ((static_cast<long long>(b) * sq + qi) * g *
                                      hkv + hk * g + gi) * DH;
     const float inv = 1.f / fmaxf(l[u], 1e-30f);
+    if (lse && tig == 0)  // m is in raw score units here
+      lse[(static_cast<long long>(b) * g * hkv + hk * g + gi) * sq + qi] =
+          l[u] > 0.f ? m[u] * scale + logf(l[u]) : INFINITY;
 #pragma unroll
     for (int nb = 0; nb < N0 / 8; ++nb)
       *reinterpret_cast<unsigned*>(orow + nb * 8 + tig * 2) =
@@ -818,10 +831,10 @@ bool kv_map(CUtensorMap* map, const void* base, int dh, int hkv, int t,
 
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int sq, int hkv, int g, long long qsb, long long qst,
-                 long long qsh, long long ksb, long long kst, long long ksh,
-                 int q_offset, int kv_len, int causal, float scale,
-                 cudaStream_t stream) {
+                 float* lse, int b, int sq, int hkv, int g, long long qsb,
+                 long long qst, long long qsh, long long ksb, long long kst,
+                 long long ksh, int q_offset, int kv_len, int causal,
+                 float scale, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   const int t = kv_len > 0 ? kv_len : 1;
   if (!kv_map(&kmap, k, DH, hkv, t, b, ksh, kst, ksb) ||
@@ -837,27 +850,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const long long n_rows = static_cast<long long>(sq) * g;
   const long long n_ctas = (n_rows + kCtaRows - 1) / kCtaRows * b * hkv;
   kern<<<(unsigned)n_ctas, kWgThreads, smem, stream>>>(
-      kmap, vmap, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, b, sq, hkv,
-      g, qsb, qst, qsh, q_vec, q_offset, kv_len, causal, scale * kLog2e);
+      kmap, vmap, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, lse, b, sq,
+      hkv, g, qsb, qst, qsh, q_vec, q_offset, kv_len, causal, scale,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 // The bf16 pair on TMA + wgmma where Dh is a multiple of 16 up to 128 and
 // the K/V views are whole 16-byte rows TMA takes; -1 when it does not
 // apply (the SIMT kernel takes the call).
-int try_wgmma(const void* q, const void* k, const void* v, void* out, int b,
-              int sq, int hkv, int g, int dh, long long qsb, long long qst,
-              long long qsh, long long ksb, long long kst, long long ksh,
-              int q_offset, int kv_len, int causal, float scale,
-              cudaStream_t s) {
+int try_wgmma(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int sq, int hkv, int g, int dh,
+              long long qsb, long long qst, long long qsh, long long ksb,
+              long long kst, long long ksh, int q_offset, int kv_len,
+              int causal, float scale, cudaStream_t s) {
   if (dh % 16 || dh > 128 || ksb % 8 || kst % 8 || ksh % 8 ||
       reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
     return -1;
 #define TARDIS_WGMMA(D)                                                      \
   case D:                                                                    \
-    return launch_wgmma<D>(q, k, v, out, b, sq, hkv, g, qsb, qst, qsh, ksb,  \
-                           kst, ksh, q_offset, kv_len, causal, scale, s);
+    return launch_wgmma<D>(q, k, v, out, lse, b, sq, hkv, g, qsb, qst, qsh,  \
+                           ksb, kst, ksh, q_offset, kv_len, causal, scale,  \
+                           s);
   switch (dh) {
     TARDIS_WGMMA(16) TARDIS_WGMMA(32) TARDIS_WGMMA(48) TARDIS_WGMMA(64)
     TARDIS_WGMMA(80) TARDIS_WGMMA(96) TARDIS_WGMMA(112) TARDIS_WGMMA(128)
@@ -867,11 +882,11 @@ int try_wgmma(const void* q, const void* k, const void* v, void* out, int b,
 }
 
 template <typename TQ, typename TKV, int DC>
-int launch_dc(const void* q, const void* k, const void* v, void* out, int b,
-              int sq, int hkv, int g, int dh, long long qsb, long long qst,
-              long long qsh, long long ksb, long long kst, long long ksh,
-              int q_offset, int kv_len, int causal, float scale,
-              cudaStream_t stream) {
+int launch_dc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int sq, int hkv, int g, int dh,
+              long long qsb, long long qst, long long qsh, long long ksb,
+              long long kst, long long ksh, int q_offset, int kv_len,
+              int causal, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((kRows + 2 * kTile) * (dh + 1) + kRows * kPld);
   auto kern = flash_prefill_kernel<TQ, TKV, DC>;
@@ -883,64 +898,56 @@ int launch_dc(const void* q, const void* k, const void* v, void* out, int b,
   const long long n_rows = static_cast<long long>(sq) * g;
   const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), hkv, b);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, sq, hkv, g, dh,
-      qsb, qst, qsh, ksb, kst, ksh, q_offset, kv_len, causal, scale);
+      (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, lse, sq, hkv, g,
+      dh, qsb, qst, qsh, ksb, kst, ksh, q_offset, kv_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int hkv, int g, int dh, long long qsb, long long qst,
-           long long qsh, long long ksb, long long kst, long long ksh,
-           int q_offset, int kv_len, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int sq, int hkv, int g, int dh, long long qsb,
+           long long qst, long long qsh, long long ksb, long long kst,
+           long long ksh, int q_offset, int kv_len, int causal, float scale,
            cudaStream_t s) {
-  if (dh <= 64)
-    return launch_dc<TQ, TKV, 4>(q, k, v, out, b, sq, hkv, g, dh, qsb, qst,
-                                 qsh, ksb, kst, ksh, q_offset, kv_len,
-                                 causal, scale, s);
-  if (dh <= 80)
-    return launch_dc<TQ, TKV, 5>(q, k, v, out, b, sq, hkv, g, dh, qsb, qst,
-                                 qsh, ksb, kst, ksh, q_offset, kv_len,
-                                 causal, scale, s);
-  if (dh <= 128)
-    return launch_dc<TQ, TKV, 8>(q, k, v, out, b, sq, hkv, g, dh, qsb, qst,
-                                 qsh, ksb, kst, ksh, q_offset, kv_len,
-                                 causal, scale, s);
-  return launch_dc<TQ, TKV, 16>(q, k, v, out, b, sq, hkv, g, dh, qsb, qst,
-                                qsh, ksb, kst, ksh, q_offset, kv_len, causal,
-                                scale, s);
+  auto run = [&](auto kern) {
+    return kern(q, k, v, out, lse, b, sq, hkv, g, dh, qsb, qst, qsh, ksb,
+                kst, ksh, q_offset, kv_len, causal, scale, s);
+  };
+  if (dh <= 64) return run(launch_dc<TQ, TKV, 4>);
+  if (dh <= 80) return run(launch_dc<TQ, TKV, 5>);
+  if (dh <= 128) return run(launch_dc<TQ, TKV, 8>);
+  return run(launch_dc<TQ, TKV, 16>);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  q (B, Sq, H, Dh) at strides
-// (qsb, qst, qsh) and out (B, Sq, H, Dh) contiguous, both in q_dtype; k and
-// v (B, Skv, Hkv, Dh) at the shared strides (ksb, kst, ksh) in kv_dtype:
-// both float32, both bfloat16, or a float32 q over bfloat16 K/V.  Dh is
-// contiguous everywhere.  kv_len <= Skv (the wrapper clamps it).
+// (qsb, qst, qsh) and out (B, Sq, H, Dh) contiguous, both in q_dtype; lse
+// null or fp32 (B, H, Sq) contiguous; k and v (B, Skv, Hkv, Dh) at the
+// shared strides (ksb, kst, ksh) in kv_dtype: both float32, both
+// bfloat16, or a float32 q over bfloat16 K/V.  Dh is contiguous
+// everywhere.  kv_len <= Skv (the wrapper clamps it).
 extern "C" int tardis_flash_prefill(
-    const void* q, const void* k, const void* v, void* out, int b, int sq,
-    int hkv, int g, int dh, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, int q_offset, int kv_len,
-    int causal, float scale, int q_dtype, int kv_dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse_p,
+    int b, int sq, int hkv, int g, int dh, long long qsb, long long qst,
+    long long qsh, long long ksb, long long kst, long long ksh, int q_offset,
+    int kv_len, int causal, float scale, int q_dtype, int kv_dtype,
+    void* stream) {
   if (b == 0 || sq == 0 || hkv == 0 || g == 0) return (int)cudaGetLastError();
   if (dh <= 0 || dh > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k, v, out, b, sq, hkv, g, dh, qsb, qst,
-                                qsh, ksb, kst, ksh, q_offset, kv_len, causal,
-                                scale, s);
+  float* lse = static_cast<float*>(lse_p);
+  auto run = [&](auto launcher) {
+    return launcher(q, k, v, out, lse, b, sq, hkv, g, dh, qsb, qst, qsh, ksb,
+                    kst, ksh, q_offset, kv_len, causal, scale, s);
+  };
+  if (q_dtype == 0 && kv_dtype == 0) return run(launch<float, float>);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, k, v, out, b, sq, hkv, g, dh, qsb,
-                                        qst, qsh, ksb, kst, ksh, q_offset,
-                                        kv_len, causal, scale, s);
+    return run(launch<float, __nv_bfloat16>);
   if (q_dtype == 1 && kv_dtype == 1) {
-    const int r = try_wgmma(q, k, v, out, b, sq, hkv, g, dh, qsb, qst, qsh,
-                          ksb, kst, ksh, q_offset, kv_len, causal, scale, s);
+    const int r = run(try_wgmma);
     if (r >= 0) return r;
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, out, b, sq, hkv, g, dh, qsb, qst, qsh, ksb, kst, ksh,
-        q_offset, kv_len, causal, scale, s);
+    return run(launch<__nv_bfloat16, __nv_bfloat16>);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,13 +11,20 @@ tensors it runs the plain version.  The kernel takes (q, k/v) in
 float32/float32, bfloat16/bfloat16 or float32/bfloat16 and Dh <= 256 in
 multiples of 8 (:func:`takes`).
 
-``flash_backward`` takes K6's operands, its output o and the output's
-gradient dout and returns (dq, dk, dv) in q's, k's and v's dtypes, under
-the same contract (strides, ``causal``, ``q_offset``, ``kv_len``, the
-dtype pairs, Dh); on CUDA tensors it launches K10 (two kernels, counted
-as one launch), on CPU tensors it runs the closed-form plain version.
-K6 alone is forward-only: autograd reaches it through
-``ops.flash_attention``.
+With ``return_lse=True`` it also returns each query row's log-sum-exp
+of its live scaled scores, fp32 (B, H, Sq), +inf on a row with no live
+key: K6 writes it from its running max and sum; the serving paths leave
+it off (no write).
+
+``flash_backward`` takes K6's operands, its output o, that LSE and the
+output's gradient dout and returns (dq, dk, dv) in q's, k's and v's
+dtypes, under the same contract (strides, ``causal``, ``q_offset``,
+``kv_len``, the dtype pairs, Dh); on CUDA tensors it launches K10 (up to
+four kernels -- D = rowsum(dO o), dq, dk/dv, the GQA partials' sum --
+counted as one launch, and by variant in ``flash_backward.variants``:
+"tf32x3" for an fp32 q, "bf16" for the bf16 pair), on CPU tensors it
+runs the closed-form plain version (which needs no LSE).  K6 alone is
+forward-only: autograd reaches it through ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 
 from .._build import launch, ptr
 from .._guard import forbid_grad
-from .ref import flash_attention_backward_ref, flash_attention_ref
+from .ref import (flash_attention_backward_ref, flash_attention_lse_ref,
+                  flash_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -68,8 +76,9 @@ def _check_cuda(name, q, k, v):
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                  kv_len=None, scale: float = None):
-    """Returns (B, Sq, H, Dh) in q's dtype."""
+                  kv_len=None, scale: float = None, return_lse: bool = False):
+    """Returns (B, Sq, H, Dh) in q's dtype; with ``return_lse`` (out,
+    lse), lse fp32 (B, H, Sq)."""
     forbid_grad("K6 flash_prefill", q, k, v,
                 use="ops.flash_attention is differentiable (K10)")
     b, sq, h, dh = q.shape
@@ -78,32 +87,51 @@ def flash_prefill(q, k, v, *, causal: bool = True, q_offset: int = 0,
         scale = dh ** -0.5
     kv_len = skv if kv_len is None else int(kv_len)
     if q.device.type != "cuda":
-        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                   kv_len=kv_len)
+        out = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                  kv_len=kv_len)
+        if not return_lse:
+            return out
+        return out, flash_attention_lse_ref(q, k, causal=causal,
+                                            q_offset=q_offset, kv_len=kv_len)
     _check_cuda("flash_prefill", q, k, v)
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
-    launch("tardis_flash_prefill", ptr(q), ptr(k), ptr(v), ptr(out), b, sq,
-           hkv, h // hkv, dh, *q.stride()[:3], *k.stride()[:3],
-           int(q_offset), max(0, min(kv_len, skv)), int(bool(causal)),
-           float(scale), _DTYPES[q.dtype], _DTYPES[k.dtype])
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    launch("tardis_flash_prefill", ptr(q), ptr(k), ptr(v), ptr(out),
+           ptr(lse), b, sq, hkv, h // hkv, dh, *q.stride()[:3],
+           *k.stride()[:3], int(q_offset), max(0, min(kv_len, skv)),
+           int(bool(causal)), float(scale), _DTYPES[q.dtype],
+           _DTYPES[k.dtype])
     flash_prefill.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0
 
 
-def flash_backward(q, k, v, o, dout, *, causal: bool = True,
+def variant_of(q_dtype) -> str:
+    """K10's variant, by q's dtype: "tf32x3" (an fp32 q, over fp32 or bf16
+    K/V: every product as three TF32 products) or "bf16" (the bf16 pair:
+    bf16 products)."""
+    return "bf16" if q_dtype == torch.bfloat16 else "tf32x3"
+
+
+def flash_backward(q, k, v, o, dout, *, lse=None, causal: bool = True,
                    q_offset: int = 0, kv_len=None, scale: float = None):
     """K10: (dq, dk, dv) of ``flash_prefill(q, k, v, ...)`` given its
-    output ``o`` and the gradient ``dout`` (both (B, Sq, H, Dh) in q's
-    dtype).  ``scale`` defaults to the forward's, Dh ** -0.5."""
+    output ``o``, the gradient ``dout`` (both (B, Sq, H, Dh) in q's dtype)
+    and, on the card, the forward's ``lse`` (fp32 (B, H, Sq), from
+    ``flash_prefill(..., return_lse=True)``).  ``scale`` defaults to the
+    forward's, Dh ** -0.5."""
     forbid_grad("K10 flash_backward", q, k, v, o, dout)
     b, sq, h, dh = q.shape
     skv, hkv = _check(q, k, v)
     for name, t in (("o", o), ("dout", dout)):
         if tuple(t.shape) != tuple(q.shape) or t.device != q.device:
             raise ValueError(f"{name} must be q's shape, on q's device")
+    if lse is not None and (tuple(lse.shape) != (b, h, sq)
+                            or lse.device != q.device):
+        raise ValueError("lse must be (B, H, Sq), on q's device")
     if scale is None:
         scale = dh ** -0.5
     kv_len = skv if kv_len is None else int(kv_len)
@@ -112,20 +140,32 @@ def flash_backward(q, k, v, o, dout, *, causal: bool = True,
             q, k, v, o, dout, causal=causal, q_offset=q_offset,
             kv_len=kv_len, scale=scale)
     _check_cuda("flash_backward", q, k, v)
+    if lse is None:
+        raise ValueError("K10 reads the forward's LSE: pass lse= from "
+                         "flash_prefill(..., return_lse=True)")
+    g = h // hkv
     o = o.to(q.dtype).contiguous()
     dout = dout.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
     dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the dk/dv partials of each query head, summed over a KV head's group
+    # in head order by the last kernel (G = 1 writes dk / dv directly)
+    ws = (torch.empty((2, b, skv, h, dh), dtype=torch.float32,
+                      device=q.device) if g > 1 else None)
     launch("tardis_flash_backward", ptr(q), ptr(k), ptr(v), ptr(o),
-           ptr(dout), ptr(dq), ptr(dk), ptr(dv), ptr(lse), ptr(delta), b, sq,
-           skv, hkv, h // hkv, dh, *q.stride()[:3], *k.stride()[:3],
+           ptr(dout), ptr(lse), ptr(dq), ptr(dk), ptr(dv), ptr(delta),
+           ptr(ws), b, sq, skv, hkv, g, dh, *q.stride()[:3], *k.stride()[:3],
            int(q_offset), max(0, min(kv_len, skv)), int(bool(causal)),
            float(scale), _DTYPES[q.dtype], _DTYPES[k.dtype])
     flash_backward.launches += 1
+    variant = variant_of(q.dtype)
+    flash_backward.variants[variant] = \
+        flash_backward.variants.get(variant, 0) + 1
     return dq, dk, dv
 
 
 flash_backward.launches = 0
+flash_backward.variants = {}

@@ -5,9 +5,10 @@ in place, so nothing is copied here.
 
 When autograd needs the call (grad mode on and an operand that requires
 grad), it runs as a ``torch.autograd.Function``: the forward launches K6
-(``kernel.flash_prefill``) and saves q, k, v and the output; the backward
-launches K10 (``kernel.flash_backward``).  Otherwise it is K6's wrapper
-alone.  On CPU tensors both wrappers run their plain versions."""
+(``kernel.flash_prefill``) with its LSE write on and saves q, k, v, the
+output and the LSE; the backward launches K10 (``kernel.flash_backward``),
+which reads that LSE instead of recomputing it.  Otherwise it is K6's
+wrapper alone.  On CPU tensors both wrappers run their plain versions."""
 from __future__ import annotations
 
 import torch
@@ -24,18 +25,19 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_len):
-        out = flash_prefill(q, k, v, causal=causal, q_offset=q_offset,
-                            kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_prefill(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, q_offset, kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, q_offset, kv_len = ctx.mask
-        dq, dk, dv = flash_backward(q, k, v, out, dout, causal=causal,
-                                    q_offset=q_offset, kv_len=kv_len)
+        dq, dk, dv = flash_backward(q, k, v, out, dout, lse=lse,
+                                    causal=causal, q_offset=q_offset,
+                                    kv_len=kv_len)
         return dq, dk, dv, None, None, None
 
 

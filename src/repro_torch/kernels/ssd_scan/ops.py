@@ -8,9 +8,9 @@ import torch
 import torch.nn.functional as F
 
 from .kernel import ssd_chunk
-from .ref import ssd_intra_chunk_ref
+from .ref import ssd_intra_chunk_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_intra_chunk_ref"]
+__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_intra_chunk_ref"]
 
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 64):

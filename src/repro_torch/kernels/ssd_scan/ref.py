@@ -5,7 +5,9 @@ per-grid-point function over its folded contract (the port of
 C, B: (G, Q, N); xdt: (G, Q, P) (x already times dt); cum: (G, Q, 1), the
 within-chunk cumulative log-decay.  G folds (batch, chunk, head).  Returns
 fp32 (y_intra (G, Q, P), S (G, N, P)).  ``ssd_chunk_ref`` is the plain
-version of the port's kernel wrapper (the model's layout) built on it.
+version of the port's kernel wrapper (the model's layout) built on it,
+``ssd_scan_ref`` that of the public ``ops.ssd_scan`` (the whole chunked
+scan: ``models.ssm.ssd_chunked``'s plain code).
 
 ``ssd_intra_chunk_split_ref`` / ``ssd_chunk_split_ref`` model the
 arithmetic of K7's tensor-core variant on the same contracts, with x and
@@ -61,6 +63,15 @@ def ssd_chunk_ref(x, dt, cum, B, C, *, chunk: int):
     y = y.reshape(b, nc, h, chunk, p).permute(0, 1, 3, 2, 4)
     S = S.reshape(b, nc, h, n, p).transpose(-1, -2)
     return y, S
+
+
+def ssd_scan_ref(x, dt, A, B, C, D, *, chunk: int = 64):
+    """The plain version of ``ops.ssd_scan`` (the port of
+    ``repro.kernels.ssd_scan.ref.ssd_scan_ref``): the chunked SSD scan in
+    plain PyTorch on any device; returns (y fp32 (b, s, h, p),
+    final_state (b, h, p, n))."""
+    from ...models.ssm import ssd_chunked_plain
+    return ssd_chunked_plain(x, dt, A, B, C, D, chunk)
 
 
 def bf16_parts(a, n: int = 3):

@@ -64,7 +64,7 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     CUDA tensors (``_ssd_kernel_eligible``) go to ``kernels.ssd_scan.ops
     .ssd_scan`` (the intra-chunk term and chunk states in the kernel K7,
     ``kernels/ssd_scan/csrc/ssd_chunk.cu``); CPU tensors run the plain
-    code below.
+    code, :func:`ssd_chunked_plain`.
 
     The JAX package's three-operand einsums are contracted pairwise here,
     in the order that keeps the intermediates at (b, nc, q, q, h): ``cb``
@@ -74,6 +74,12 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     if _ssd_kernel_eligible(x):
         from ..kernels.ssd_scan.ops import ssd_scan
         return ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    return ssd_chunked_plain(x, dt, A, B, C, D, chunk)
+
+
+def ssd_chunked_plain(x, dt, A, B, C, D, chunk: int):
+    """:func:`ssd_chunked`'s plain code on any device (the plain version
+    of ``kernels.ssd_scan.ops.ssd_scan``)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk

@@ -11,8 +11,11 @@ the JAX package's ``reference_attention`` and of its blocked
 masks, within rtol = atol = 5e-4 (``tests/test_models.py``'s flash
 gradient tolerance); so is the port's own blocked ``flash_attention``
 (the CPU prefill path above S * S = 1024^2), differentiated by autograd.
-On the card K10 is held to the plain version within 2e-4 (fp32) and 3e-2
-(bf16), and two calls are bit-identical."""
+On the card K10 (reading the LSE that K6 wrote) is held to the plain
+version within 2e-4 (fp32) and 3e-2 (bf16) -- among the shapes a long
+causal one (S 4096) at G = 1 and G = 8 -- two calls are bit-identical,
+and each call counts its variant ("tf32x3" for an fp32 q, "bf16" for the
+bf16 pair)."""
 import functools
 
 import numpy as np
@@ -142,6 +145,21 @@ def test_wrapper_checks_its_operands():
         FK.flash_backward(q, k[:, :, :1].expand(-1, -1, 3, -1), v, o, do)
 
 
+def test_chip_smoke_counts_k10_cta_work():
+    """``chip_smoke.k10_schedule`` (K10's CTAs and their tiles, from the
+    loop bounds of ``flash_backward.cu``): at the training shape (B 4, S
+    1024, 32 / 4 heads, Dh 64, causal) the heaviest dk/dv CTA carries 16
+    tiles against a mean of 8.5; at the paged suffix (16 queries at
+    q_offset 64, kv_len 80) every CTA carries the same."""
+    import chip_smoke
+    s = chip_smoke.k10_schedule(4, 1024, 1024, 32, 4, 64, 0, 1024)
+    assert (s["dq_ctas"], s["dq_max"], s["dq_mean"]) == (2048, 16, 8.5)
+    assert (s["dkv_ctas"], s["dkv_max"], s["dkv_mean"]) == (2048, 16, 8.5)
+    s = chip_smoke.k10_schedule(1, 16, 80, 32, 4, 64, 64, 80)
+    assert (s["dq_max"], s["dq_mean"], s["dkv_max"], s["dkv_mean"]) == \
+        (2, 2.0, 1, 1.0)
+
+
 # --- CUDA lane ----------------------------------------------------------------
 
 @pytest.fixture
@@ -152,25 +170,37 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES) + ["train", "dh128", "dh256"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_backward_matches_plain(cuda, case, dtype):
-    shape = {"train": (1, 256, 256, 32, 4, 64, True, 0, None),
-             "dh128": (1, 70, 90, 8, 2, 128, True, 20, 90),
-             "dh256": (1, 40, 40, 4, 4, 256, True, 0, None)}.get(
-                 case, CASES.get(case))
+CUDA_SHAPES = {"train": (1, 256, 256, 32, 4, 64, True, 0, None),
+               "dh128": (1, 70, 90, 8, 2, 128, True, 20, 90),
+               "dh256": (1, 40, 40, 4, 4, 256, True, 0, None),
+               # long and causal: the first KV block sees 64 query tiles,
+               # the last one 1
+               "long_g1": (1, 4096, 4096, 4, 4, 64, True, 0, None),
+               "long_g8": (1, 4096, 4096, 16, 2, 64, True, 0, None)}
+
+
+def _cuda_inputs(cuda, case, q_dtype, kv_dtype):
+    shape = CUDA_SHAPES.get(case, CASES.get(case))
     b, sq, skv, h, hkv, dh, causal, q_offset, kv_len = shape
     g = torch.Generator(device=cuda).manual_seed(sq)
-    dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(sh, generator=g, device=cuda).to(dt) for sh in
+    q, k, v = (torch.randn(sh, generator=g, device=cuda) for sh in
                ((b, sq, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
-    do = torch.randn((b, sq, h, dh), generator=g, device=cuda).to(dt)
+    do = torch.randn((b, sq, h, dh), generator=g, device=cuda)
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
-    o = FK.flash_prefill(q, k, v, **kw)
+    return (q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype),
+            do.to(q_dtype), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES) + list(CUDA_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v, do, kw = _cuda_inputs(cuda, case, dt, dt)
+    o, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
     n0 = FK.flash_backward.launches
-    got = FK.flash_backward(q, k, v, o, do, **kw)
-    again = FK.flash_backward(q, k, v, o, do, **kw)
+    got = FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
+    again = FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
     assert FK.flash_backward.launches == n0 + 2
     want = flash_attention_backward_ref(q, k, v, o, do, **kw)
     for a, a2, w, t in zip(got, again, want, (q, k, v)):
@@ -178,3 +208,38 @@ def test_cuda_flash_backward_matches_plain(cuda, case, dtype):
         assert torch.equal(a, a2)
         torch.testing.assert_close(a.float(), w.float(),
                                    **(FP32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa", "kv_len", "train", "dh128"])
+def test_cuda_flash_backward_fp32_q_over_bf16_kv(cuda, case):
+    """The mixed pair takes the TF32 split (K/V widened to fp32 tiles):
+    dq in fp32 within 2e-4, dk and dv rounded once to bf16 (3e-2)."""
+    q, k, v, do, kw = _cuda_inputs(cuda, case, torch.float32,
+                                   torch.bfloat16)
+    o, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
+    got = FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
+    want = flash_attention_backward_ref(q, k, v, o, do, **kw)
+    assert [t.dtype for t in got] == [torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    torch.testing.assert_close(got[0], want[0], **FP32)
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a.float(), w.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_counts_its_variants(cuda):
+    """One launch a call whatever the number of kernels, and the variant
+    fixed by q's dtype; without the forward's LSE it raises."""
+    FK.flash_backward.variants.clear()
+    n0 = FK.flash_backward.launches
+    for q_dt, kv_dt in ((torch.float32, torch.float32),
+                        (torch.bfloat16, torch.bfloat16),
+                        (torch.float32, torch.bfloat16)):
+        q, k, v, do, kw = _cuda_inputs(cuda, "gqa", q_dt, kv_dt)
+        o, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
+        FK.flash_backward(q, k, v, o, do, lse=lse, **kw)
+    assert FK.flash_backward.launches == n0 + 3
+    assert FK.flash_backward.variants == {"tf32x3": 2, "bf16": 1}
+    with pytest.raises(ValueError, match="LSE"):
+        FK.flash_backward(q, k, v, o, do, **kw)
