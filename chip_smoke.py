@@ -21,17 +21,24 @@ Phases (any failure exits non-zero; nothing is caught):
      3.35 TB/s and its ops at the peak of their type: fp32 67 TFLOP/s,
      bf16 tensor cores 989 TFLOP/s); K9 (the coherence simulator's whole
      loop, one launch) against its plain loop on the card, every tensor
-     of the final state bit for bit, over the litmus, fft at 16 cores
+     of the final state bit for bit, in each variant that takes the state
+     (the L1 in shared memory, "smem", or in global memory) and the
+     variants against each other, over the litmus, fft at 16 cores
      (both protocols), the tiny-cache geometry, ts_bits=4, the E-state,
      Ackwise k = 4 and speculation off: ms and us a simulated step of K9
-     and of the plain loop, bound by its steps times one dependent L2
-     round trip (the same source's pointer-chase probe);
+     and of the plain loop, bound by its steps times one dependent
+     shared-memory round trip plus its LLC requests times one dependent
+     L2 round trip (the same source's two pointer-chase probes); K11
+     also against ``F.rms_norm``'s backward by CUDA-graph replay, and
+     its two kernels' times;
   3. the simulator path: every golden run (``tests/data/
      torch_sim_golden.json``: fig4's 48 runs at 64 cores and scale 1.0,
      fig8's 6 at 256 cores) through ``repro_torch.core.simulate`` on the
-     card, each one K9 launch and one host sync, bit-identical to its
-     entry and SC-clean; wall ms, steps and us a step each, fig4's and
-     fig8's averages as ``benchmarks/paper_figs.py`` computes them; then
+     card, each one K9 launch (fig4's "smem", fig8's "global") and one
+     host sync, bit-identical to its entry and SC-clean; wall ms, steps
+     and us a step each, fig4's and fig8's averages as
+     ``benchmarks/paper_figs.py`` computes them, K9 against its plain
+     loop over fig4/fft/tardis at 64 cores; then
      the main path: ``ServingCluster`` serving full-width, full-depth
      tinyllama-1.1b (random bf16 weights from a seeded generator) on the
      card -- 8 requests sharing a 64-token system prompt -- with every
@@ -995,6 +1002,28 @@ def kernel_times(fn, reps=5):
     return out
 
 
+def k11_kernel_times(fn, reps=20):
+    """{"rows": ms, "dw": ms}: the device time a call of K11's two
+    kernels, read by ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"rows": 0.0, "dw": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k in out:
+                if f"rmsnorm_bwd_{k}" in e.key:
+                    out[k] += e.self_device_time_total / reps / 1e3
+    assert all(out.values()), f"K11's kernels not traced: {out}"
+    return out
+
+
 def phase2_backward_kernels(rows):
     """K10 and K11 against their plain versions on the card: each shape in
     fp32 (2e-4) and bf16 (3e-2), two calls bit-identical, K10 reading the
@@ -1209,20 +1238,40 @@ def phase2_backward_kernels(rows):
         def library(yl=yl, xl=xl, wl=wl, dy=dy):
             return torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)
 
+        # fresh leaves each call, so autograd's nodes for them are made on
+        # the stream that runs (and, in a capture, records) the call
+        def lib_fwd(x=x, w=w):
+            return F.rms_norm(x.detach().requires_grad_(), (d,),
+                              w.detach().requires_grad_(), 1e-5)
+
+        def lib_fwd_bwd(x=x, w=w, dy=dy):
+            xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
+            return torch.autograd.grad(F.rms_norm(xi, (d,), wi, 1e-5),
+                                       (xi, wi), dy)
+
         # bytes: x (or h), dy (and dh) and w read, dx and dw written, fp32;
         # about 10 operations an element
         nbytes = 4 * ((3 if dh is None else 4) * r * d + 2 * d)
-        t = timings(lambda x=x, dy=dy, dh=dh: RK.rmsnorm_backward(
-            x, w, dy, dh=dh), lambda x=x, dy=dy, dh=dh: rmsnorm_backward_ref(
-                x, w, dy, dh=dh))
-        t["library_ms"] = median_ms(library)
+
+        def kernel(x=x, dy=dy, dh=dh):
+            return RK.rmsnorm_backward(x, w, dy, dh=dh)
+        t = timings(kernel, lambda x=x, dy=dy, dh=dh: rmsnorm_backward_ref(
+            x, w, dy, dh=dh))
+        # the library's backward by graph replay: forward + backward less
+        # the forward; the eager figure of PRs 20-21 beside it
+        eager_ms = median_ms(library)
+        t["library_ms"] = graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd)
+        split = k11_kernel_times(kernel)
         add(dict(
             name=name, wrapper="rmsnorm_backward", path=path,
             variant=variant, source="src/repro_torch/kernels/rmsnorm/csrc/"
             "rmsnorm_backward.cu", replaces="src/repro/kernels/rmsnorm/"
             "kernel.py:24", max_abs_err=errs["fp32"],
-            shape=f"rows={r} D={d} fp32 (library: eager autograd through "
-            f"F.rms_norm)", **t,
+            shape=f"rows={r} D={d} fp32; kernels (torch.profiler): rows "
+            f"{split['rows'] * 1e3:.2f} us, dw sum {split['dw'] * 1e3:.2f} "
+            f"us; library: F.rms_norm's backward by graph replay (forward + "
+            f"backward less forward), eager autograd {eager_ms * 1e3:.2f} "
+            f"us", **t,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(nbytes, 10 * r * d)))))
     torch.cuda.empty_cache()
@@ -1488,40 +1537,114 @@ def _flat(st, pre=""):
     return out
 
 
-def l2_round_trip_ms(hops=20000, reps=5):
-    """One dependent L2 round trip on this card: K9's source's probe
-    follows a random cycle over 4 MB (L2-resident, past L1) through
-    ``ld.global.cg``; median of ``reps`` runs of ``hops`` loads."""
+def _chase_cycle(n):
+    """A random cycle over n int32 entries (``nxt[i]`` the next), on the
+    card."""
     import torch
-    from repro_torch.kernels.coherence_sim.kernel import l2_chase
-    n = 1 << 20
     g = torch.Generator().manual_seed(SEED)
     perm = torch.randperm(n, generator=g)
     nxt = torch.empty(n, dtype=torch.int64)
     nxt[perm] = perm.roll(-1)
-    nxt = nxt.to(torch.int32).cuda()
-    nxt.sum()                                   # bring it into L2
-    l2_chase(nxt, hops)
+    return nxt.to(torch.int32).cuda()
+
+
+def _chase_ms(probe, nxt, hops, reps=5):
+    """ms a dependent load of ``probe``: median over ``reps`` of (a chase
+    of ``2 hops`` less one of ``hops``) / hops, so the launch and the
+    probe's set-up drop out."""
+    import torch
+    probe(nxt, hops)
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        l2_chase(nxt, hops)
-        b.record()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        probe(nxt, hops)
+        ev[1].record()
+        probe(nxt, 2 * hops)
+        ev[2].record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / hops)
+        times.append((ev[1].elapsed_time(ev[2]) - ev[0].elapsed_time(ev[1]))
+                     / hops)
     return sorted(times)[len(times) // 2]
+
+
+def l2_round_trip_ms():
+    """One dependent L2 round trip on this card: K9's source's probe
+    follows a random cycle over 4 MB (L2-resident, past L1) through
+    ``ld.global.cg``."""
+    from repro_torch.kernels.coherence_sim.kernel import l2_chase
+    nxt = _chase_cycle(1 << 20)
+    nxt.sum()                                   # bring it into L2
+    return _chase_ms(l2_chase, nxt, 20000)
+
+
+def smem_round_trip_ms():
+    """One dependent shared-memory round trip on this card: the same
+    source's probe follows a random cycle over 32 KB in one thread's
+    shared memory."""
+    from repro_torch.kernels.coherence_sim.kernel import smem_chase
+    return _chase_ms(smem_chase, _chase_cycle(8192), 200000)
+
+
+def k9_bound_ms(res_steps, n_llc_req, t_l2, t_smem):
+    """K9's bound (ms) for a run: each step at least one dependent
+    shared-memory round trip, each LLC request one L2 round trip (the
+    LLC fits no SM); beside it PR 19's, each step one L2 round trip."""
+    return res_steps * t_smem + n_llc_req * t_l2, res_steps * t_l2
+
+
+def _k9_run(st, geom, proto, variant):
+    """ms of one K9 launch on ``st``: CUDA events around it, the card
+    kept busy (``torch.cuda._sleep``, ~2 ms) while the host prepares the
+    launch, so the events time the kernel and not the wrapper's Python."""
+    import torch
+    from repro_torch.kernels.coherence_sim import kernel as CK
+    torch.cuda.synchronize()
+    torch.cuda._sleep(K9_SLEEP_CYCLES)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    CK.sim_run(st, geom, proto, variant=variant)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+K9_SLEEP_CYCLES = 4_000_000     # ~2 ms of the card's clock
+
+
+def _k9_row(variant, shape, ms, call_ms, plain_ms, err, steps, n_llc, t_l2,
+            t_smem):
+    new, old = k9_bound_ms(steps, n_llc, t_l2, t_smem)
+    return dict(name="sim_run", wrapper="sim_run", variant=variant,
+                route="cuda", path="simulator",
+                source="src/repro_torch/kernels/coherence_sim/csrc/"
+                "sim_run.cu",
+                replaces="src/repro/core/simulator.py:570 "
+                "(lax.while_loop; no Pallas kernel)",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=new, bound_by="serial steps",
+                library_ms=None, launch_ms=None,
+                shape=f"{shape}: {steps} steps, {n_llc} LLC requests; us/step "
+                f"K9 ({variant}) {ms / steps * 1e3:.3f}, plain "
+                f"{plain_ms / steps * 1e3:.1f}; bound: steps x "
+                f"{t_smem * 1e6:.1f} ns (shared-memory round trip) + LLC "
+                f"requests x {t_l2 * 1e6:.1f} ns (L2 round trip); PR 19's "
+                f"bound (steps x L2) {old:.3f} ms")
 
 
 def phase2_coherence_sim(rows):
     """K9 against its plain loop on the card, every tensor of the final
-    state bit for bit: the litmus (both protocols), fft at 16 cores and
-    scale 0.1 (both), the tiny-cache geometry, ts_bits=4, the E-state,
-    Ackwise (k = 4) and speculation off.  ms and us a simulated step of
-    each (K9: CUDA events around its one launch; the plain loop: the
-    host's clock, synchronised); the row's numbers are the fft / Tardis
-    run's, its bound that run's steps times one L2 round trip."""
+    state bit for bit, in each variant that takes the state ("smem": the
+    L1 in shared memory; "global"), the variants also against each other:
+    the litmus (both protocols), fft at 16 cores and scale 0.1 (both), the
+    tiny-cache geometry, ts_bits=4, the E-state, Ackwise (k = 4) and
+    speculation off.  ms and us a simulated step of each (K9: CUDA events
+    around its one launch; the plain loop: the host's clock,
+    synchronised).  Two rows, the fft / Tardis run's in each variant;
+    their bound that run's steps times one shared-memory round trip plus
+    its LLC requests times one L2 round trip (the source's two probes).
+    Returns the probes' (L2, shared-memory) round trips in ms."""
     import torch
     from repro_torch.core.traces import make_trace
     from repro_torch.kernels.coherence_sim import kernel as CK
@@ -1544,63 +1667,60 @@ def phase2_coherence_sim(rows):
                                                      scale=0.1),
               "tardis", None, {"speculate": False}))
     t_l2 = l2_round_trip_ms()
-    log(f"  one dependent L2 round trip (K9's probe): {t_l2 * 1e6:.1f} ns")
-    row = None
+    t_smem = smem_round_trip_ms()
+    log(f"  one dependent L2 round trip (K9's probe): {t_l2 * 1e6:.1f} ns; "
+        f"one dependent shared-memory round trip: {t_smem * 1e6:.1f} ns")
     for label, tr, proto, geom_kw, cfg_kw in cases:
         geom, state = _sim_case_state(tr, proto, geom_kw, **cfg_kw)
-        got, want = state(), state()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        CK.sim_run(got, geom, proto)
-        b.record()
-        torch.cuda.synchronize()
-        k9_ms = a.elapsed_time(b)
+        want = state()
         t0 = time.perf_counter()
         sim_run_ref(want, geom, proto)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        fa, fb = _flat(got), _flat(want)
-        err = max(max_err(fa[k], fb[k]) for k in fa)
-        bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
-        steps = int(got["steps"])
-        log(f"  K9 {label}: {steps} steps; K9 {k9_ms:.3f} ms = "
-            f"{k9_ms / steps * 1e3:.3f} us/step, plain {plain_ms:.1f} ms = "
-            f"{plain_ms / steps * 1e3:.1f} us/step; "
-            + ("bit-identical" if not bad else f"DIFFERS in {bad}"))
-        assert not bad, f"K9 ({label}) differs from its plain loop: {bad}"
+        fb = _flat(want)
+        steps = int(want["steps"])
+        got = {}
+        for variant in CK.VARIANTS:
+            if CK.smem_bytes(geom, variant) > CK.SMEM_LIMIT:
+                continue
+            st = state()
+            k9_ms = _k9_run(st, geom, proto, variant)
+            fa = _flat(st)
+            err = max(max_err(fa[k], fb[k]) for k in fa)
+            bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+            log(f"  K9 {label} ({variant}, {CK.smem_bytes(geom, variant)} "
+                f"B shared): {steps} steps; K9 {k9_ms:.3f} ms = "
+                f"{k9_ms / steps * 1e3:.3f} us/step, plain {plain_ms:.1f} ms"
+                f" = {plain_ms / steps * 1e3:.1f} us/step; "
+                + ("bit-identical" if not bad else f"DIFFERS in {bad}"))
+            assert not bad, f"K9 ({label}, {variant}) differs from its " \
+                f"plain loop: {bad}"
+            got[variant] = fa
+        assert got, f"no K9 variant takes {label}"
+        if len(got) == 2:
+            bad = [k for k in got["smem"]
+                   if not torch.equal(got["smem"][k], got["global"][k])]
+            assert not bad, f"K9's variants differ on {label}: {bad}"
         if label == "fft16/tardis":
-            fresh = [state() for _ in range(5)]
-            torch.cuda.synchronize()
-            times, calls = [], []
-            for st in fresh:
-                a.record()
-                t0 = time.perf_counter()
-                CK.sim_run(st, geom, proto)
-                b.record()
-                torch.cuda.synchronize()
-                calls.append((time.perf_counter() - t0) * 1e3)
-                times.append(a.elapsed_time(b))
-            row = dict(name="sim_run", route="cuda", path="simulator",
-                       source="src/repro_torch/kernels/coherence_sim/csrc/"
-                       "sim_run.cu",
-                       replaces="src/repro/core/simulator.py:570 "
-                       "(lax.while_loop; no Pallas kernel)",
-                       max_abs_err=err, ms=sorted(times)[2],
-                       call_ms=sorted(calls)[2], plain_ms=plain_ms,
-                       bound_ms=steps * t_l2, bound_by="serial steps",
-                       library_ms=None, launch_ms=None,
-                       shape=f"fft, 16 cores, scale 0.1, Tardis: {steps} "
-                       f"steps; us/step K9 {sorted(times)[2] / steps * 1e3:.3f}"
-                       f", plain {plain_ms / steps * 1e3:.1f}, L2 round trip "
-                       f"{t_l2 * 1e6:.1f} ns")
+            n_llc = int(want["stats"]["n_llc_req"])
+            for variant in CK.VARIANTS:
+                times, calls = [], []
+                for _ in range(5):
+                    st = state()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    times.append(_k9_run(st, geom, proto, variant))
+                    calls.append((time.perf_counter() - t0) * 1e3)
+                row = _k9_row(variant, "fft, 16 cores, scale 0.1, Tardis",
+                              sorted(times)[2], sorted(calls)[2], plain_ms,
+                              err, steps, n_llc, t_l2, t_smem)
+                rows.append(row)
+                _log_row(row)
         del got, want
-    rows.append(row)
-    _log_row(row)
+    return t_l2, t_smem
 
 
-def phase3_simulator_path(smi):
+def phase3_simulator_path(smi, rows, t_l2, t_smem):
     """Every golden run (fig4: 12 benchmarks x {MSI, Ackwise k=4, Tardis,
     Tardis without speculation} at 64 cores and scale 1.0; fig8: fmm, fft
     and lu_c at 256 cores and scale 0.08 under MSI and Tardis) through
@@ -1610,16 +1730,22 @@ def phase3_simulator_path(smi):
     reproduce are printed): each exactly one K9 launch and one host sync
     (``torch.cuda.set_sync_debug_mode``), bit-identical to its golden
     entry (stats, cycles, ops, aborted, pts, the log's sha256s, steps)
-    and SC-clean (``check_sc``); wall ms, steps and us a step each; then
+    and SC-clean (``check_sc``), in the K9 variant its geometry takes
+    (fig4: "smem", fig8: "global"); wall ms, steps and us a step each;
     fig4's and fig8's averages as ``benchmarks/paper_figs.py`` computes
-    them.  Returns the launch counts of the runs."""
+    them; then fig4/fft/tardis again, K9 alone (CUDA events) beside the
+    plain loop on the card, bit for bit: K9's row at 64 cores.  Returns
+    the launch counts of the runs and their counts by variant."""
     import warnings
 
     import numpy as np
     import torch
     from repro_torch.core import SimConfig, Trace, make_trace, simulate
     from repro_torch.core.check import check_sc
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.kernels.coherence_sim import kernel as CK
+    from repro_torch.kernels.coherence_sim.ref import sim_run_ref
     sys.path.insert(0, str(ROOT / "scripts"))
     from sim_golden import load_traces, result_entry, trace_key
     golden = json.loads(SIM_GOLDEN.read_text())
@@ -1637,6 +1763,7 @@ def phase3_simulator_path(smi):
         tr = traces[trace_key(entry)]
         cfg = SimConfig(max_steps=golden["max_steps"], **entry["config"])
         before = launch_counts()["sim_run"]
+        before_v = dict(CK.sim_run.variants)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -1649,6 +1776,8 @@ def phase3_simulator_path(smi):
             torch.cuda.set_sync_debug_mode(0)
         syncs = sum("synchroniz" in str(w.message) for w in caught)
         launches = launch_counts()["sim_run"] - before
+        (variant,) = [v for v, k in CK.sim_run.variants.items()
+                      if k != before_v.get(v, 0)]
         got = result_entry(res)
         bad = [k for k in ("stats", "cycles", "ops", "aborted", "pts",
                            "log_n", "log_sha256") if got[k] != entry[k]]
@@ -1658,36 +1787,57 @@ def phase3_simulator_path(smi):
         walls.append((wall, res.steps))
         log(f"  {entry['key']:36s} {wall:9.2f} ms wall, {res.steps:6d} "
             f"steps, {wall / res.steps * 1e3:6.3f} us/step, {launches} "
-            f"launch, {syncs} sync, SC clean, "
+            f"launch ({variant}), {syncs} sync, SC clean, "
             + ("bit-identical to golden" if not bad else f"DIFFERS: {bad}"))
         assert launches == 1 and syncs == 1, (entry["key"], launches, syncs)
+        assert variant == {"fig4": "smem", "fig8": "global"}[entry["fig"]], \
+            (entry["key"], variant)
         assert not bad, f"{entry['key']} differs from its golden entry: {bad}"
         res_by_key[entry["key"]] = res
-    counts = launch_counts()
+    counts, variants = launch_counts(), variant_counts()
     wall = sum(w for w, _ in walls)
     steps = sum(n for _, n in walls)
+    for fig in ("fig4", "fig8"):
+        fw = [(w, n) for (w, n), e in zip(walls, golden["runs"])
+              if e["fig"] == fig]
+        log(f"  {fig}: {len(fw)} runs, {sum(n for _, n in fw)} steps in "
+            f"{sum(w for w, _ in fw):.1f} ms wall = "
+            f"{sum(w for w, _ in fw) / sum(n for _, n in fw) * 1e3:.3f} "
+            f"us/step")
     log(f"simulator path on {smi}: {len(walls)} runs, {steps} steps in "
         f"{wall:.1f} ms wall = {wall / steps * 1e3:.3f} us/step; K9 "
-        f"launches {counts['sim_run']}")
+        f"launches {counts['sim_run']} {variants['sim_run']}")
     # one run's breakdown: K9's device time (CUDA events around the one
-    # launch) against simulate's wall time for the same run
-    from repro_torch.kernels.coherence_sim.kernel import sim_run
+    # launch, median of 3) against simulate's wall time for the same run,
+    # and the plain loop on the card over the same run
     entry = next(e for e in golden["runs"] if e["key"] == "fig4/fft/tardis")
     geom, state = _sim_case_state(traces[trace_key(entry)], "tardis")
-    st = state()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    sim_run(st, geom, "tardis")
-    b.record()
-    torch.cuda.synchronize()
-    k9_ms = a.elapsed_time(b)
+    k9 = []
+    for _ in range(3):
+        st = state()
+        k9.append(_k9_run(st, geom, "tardis", None))
+    k9_ms = sorted(k9)[1]
     run_ms = next(w for (w, _), e in zip(walls, golden["runs"])
                   if e is entry)
+    want = state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim_run_ref(want, geom, "tardis")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fa, fb = _flat(st), _flat(want)
+    bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    assert not bad, f"K9 differs from its plain loop on {entry['key']}: {bad}"
     log(f"  fig4/fft/tardis: K9 {k9_ms:.2f} ms on the card of simulate's "
         f"{run_ms:.2f} ms wall ({k9_ms / run_ms:.3f}; the rest: state "
-        f"set-up, launch, one read-back)")
+        f"set-up, launch, one read-back); the plain loop {plain_ms:.1f} ms, "
+        f"bit-identical")
+    row = _k9_row(CK.pick_variant(geom), "fig4/fft/tardis: fft, 64 cores, "
+                  "scale 1.0, Tardis", k9_ms, run_ms, plain_ms, 0.0,
+                  int(st["steps"]), int(st["stats"]["n_llc_req"]), t_l2,
+                  t_smem)
+    rows.append(row)
+    _log_row(row)
 
     def rel(fig, bench, a, b, stat=None):
         ra = res_by_key[f"{fig}/{bench}/{a}"]
@@ -1722,7 +1872,7 @@ def phase3_simulator_path(smi):
     log(f"fig8 (256 cores, scale 0.08, {', '.join(fig8)}) on the card: "
         + json.dumps(out8))
     assert counts["sim_run"] == len(golden["runs"]), counts
-    return counts
+    return counts, variants
 
 
 # Multi-host serving: the JAX package's model of a fleet -- K hosts, each a
@@ -3013,9 +3163,9 @@ def main() -> int:
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
     phase2_backward_kernels(rows)
-    phase2_coherence_sim(rows)
+    t_l2, t_smem = phase2_coherence_sim(rows)
     stamp("phase 2")
-    sim_counts = phase3_simulator_path(smi)
+    sim_counts = phase3_simulator_path(smi, rows, t_l2, t_smem)
     stamp("phase 3 (simulator path)")
     counts, variants, _tps = phase3_main_path(smi)
     stamp("phase 3 (paged path)")
@@ -3046,14 +3196,14 @@ def main() -> int:
     # rows count their variant's
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
-                   "simulator": (sim_counts, {}), "train": train_counts,
+                   "simulator": sim_counts, "train": train_counts,
                    **wave_counts}
     for r in rows:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])
         r["launches"] = (v.get(wrapper, {}).get(r["variant"], 0)
                          if wrapper in ("rmsnorm", "rmsnorm_backward",
-                                        "flash_backward")
+                                        "flash_backward", "sim_run")
                          else c.get(wrapper, 0))
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)

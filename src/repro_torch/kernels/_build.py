@@ -120,9 +120,10 @@ SIGNATURES = {
                               + [_I32] * 3 + [_F32, _I32, _I32]),
     "tardis_rmsnorm_backward": ([_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP,
                                  _I64, _VP, _VP, _I32, _I32, _I32, _F32,
-                                 _I32, _I32]),
-    "tardis_sim_run": [_VP, _I32, _VP, _I32, _I32, _VP],
+                                 _I32, _I32, _I32]),
+    "tardis_sim_run": [_VP, _I32, _VP, _I32, _I32, _I32, _I32, _VP],
     "tardis_l2_chase": [_VP, _I32, _VP, _VP],
+    "tardis_smem_chase": [_VP, _I32, _I32, _VP, _VP],
 }
 
 

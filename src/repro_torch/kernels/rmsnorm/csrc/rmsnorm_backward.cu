@@ -11,32 +11,38 @@
 // package differentiates src/repro/kernels/rmsnorm/ref.py's plain norm
 // with autodiff; this is that closed form.
 //
-// Layout: g, dy, dh and dx are rows of D contiguous elements at their own
-// row strides; w is (D,).  Kernel 1 (rmsnorm_bwd_rows): a grid of n_ctas
-// CTAs (the wrapper's BWD_CTAS = 264, fewer for fewer rows), sized to the
-// row (a thread holds kVpt columns j = t + k * blockDim, so the loads are
-// coalesced); CTA c takes rows c, c +
-// gridDim, ... in order, one row at a time: the row's two sums
-// (sum g^2 and sum gw * g) are reduced by warp shuffles and one
-// shared-memory step in which every thread adds the warps' parts in the
-// same order, then dx is written, and the thread adds dy * xhat into its
-// columns' fp32 partials of dw.  Each CTA writes its partial row of dw
-// (gridDim x D fp32); kernel 2 (rmsnorm_bwd_dw) sums those partials over
-// the CTAs in CTA order, a thread a column.  No float atomics: the order
-// of every sum is fixed by the shapes alone, so two calls are bit
-// identical.
-//
 // Bound on the H100: bytes.  g, dy (and dh) are read once and dx written
-// once; w and the partials (n_ctas x D fp32, 2 MB at D = 2048) stay in
-// L2.  ~10 flop per element, far below what would bind fp32 SIMT.
+// once; w and the dw partials stay in L2.  ~10 flop per element, far below
+// what would bind fp32 SIMT.  So the design keeps HBM busy:
+//  * Kernel 1 (rmsnorm_bwd_rows): a CTA of nt = 32 * ceil(D / 256)
+//    threads holds a row, 8 columns a thread -- two 16-byte vectors of
+//    fp32 or one of bf16 where every row and pointer is 16-byte aligned
+//    (else 8 scalars at j = t + k * nt), so loads and stores are 16 bytes
+//    a thread and coalesced.  Its CTAs take rows c, c + gridDim, ... and
+//    keep the NEXT row's loads in flight (a register double buffer) while
+//    the current row reduces and writes.  The row's two sums (g^2 and
+//    gw * g) are warp butterflies (symmetric: every lane gets the same
+//    bits); a row of one warp (D <= 256) needs nothing more, a wider one
+//    one barrier a row (the warps' parts in a shared buffer that
+//    alternates between rows, added in warp order by every thread).
+//  * Each thread adds dy * xhat into its columns' fp32 partials of dw and
+//    writes them once (gridDim x D fp32).  Kernel 2 (rmsnorm_bwd_dw)
+//    spreads their sum over the card: a CTA takes 32 columns, its 32
+//    warps each sum every 32nd partial row in order, and a fixed tree over
+//    the warps finishes each column.
+// No float atomics: the order of every sum is fixed by the shapes, the
+// strides' alignment and the CTA count (the wrapper's, from D alone), so
+// two calls are bit identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kVpt = 8;          // columns a thread holds
+constexpr int kElems = 8;         // columns a thread holds
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kDwCols = 32;       // kernel 2: columns of a CTA
+constexpr int kDwSlices = 32;     // kernel 2: its warps, a partial row each
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
@@ -48,133 +54,266 @@ template <> __device__ __forceinline__ __nv_bfloat16 cvt(float x) {
   return __float2bfloat16(x);
 }
 
-// (sum a, sum b) over the CTA; every thread gets the same bits (the warp
-// butterfly is symmetric, and every thread adds the warps' parts in warp
-// order).
-__device__ __forceinline__ float2 block_sum2(float a, float b,
-                                             float2* red) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
+// V elements of T as one load: a 16-byte vector (V = 16 / sizeof(T)) or a
+// scalar (V = 1); R is what a load returns
+template <typename T, int V> struct Pack;
+template <> struct Pack<float, 4> {
+  using R = uint4;
+  __device__ static void unpack(const R& r, float (&f)[4]) {
+    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = make_float2(a, b);
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-    s.x += red[i].x;
-    s.y += red[i].y;
+  __device__ static R pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
-  __syncthreads();  // red is written again by the next row
-  return s;
+};
+template <> struct Pack<__nv_bfloat16, 8> {
+  using R = uint4;
+  __device__ static void unpack2(unsigned u, float& lo, float& hi) {
+    lo = __uint_as_float(u << 16);
+    hi = __uint_as_float(u & 0xffff0000u);
+  }
+  __device__ static unsigned pack2(float lo, float hi) {
+    const unsigned l = __bfloat16_as_ushort(__float2bfloat16(lo));
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16(hi));
+    return l | (h << 16);
+  }
+  __device__ static void unpack(const R& r, float (&f)[8]) {
+    unpack2(r.x, f[0], f[1]); unpack2(r.y, f[2], f[3]);
+    unpack2(r.z, f[4], f[5]); unpack2(r.w, f[6], f[7]);
+  }
+  __device__ static R pack(const float (&f)[8]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
+                      pack2(f[4], f[5]), pack2(f[6], f[7]));
+  }
+};
+template <typename T> struct Pack<T, 1> {
+  using R = T;
+  __device__ static void unpack(const R& r, float (&f)[1]) { f[0] = ldf(&r); }
+  __device__ static R pack(const float (&f)[1]) { return cvt<T>(f[0]); }
+};
+
+template <typename T, int V>
+__device__ __forceinline__ typename Pack<T, V>::R ldv(const T* p) {
+  return *reinterpret_cast<const typename Pack<T, V>::R*>(p);
 }
 
-template <typename T, typename W>
-__global__ void rmsnorm_bwd_rows(const T* __restrict__ g, long long sg,
-                                 const T* __restrict__ dy, long long sdy,
-                                 const T* __restrict__ dh, long long sdh,
-                                 const W* __restrict__ w, T* __restrict__ dx,
-                                 long long sdx, float* __restrict__ partial,
-                                 int rows, int d, float eps) {
-  __shared__ float2 red[kMaxWarps];
-  const int t = threadIdx.x, nt = blockDim.x;
-  float wv[kVpt], acc[kVpt];
+// row r's kN vectors of this thread (vector jv = t + k * nt, element
+// jv * V + u; a scalar row V = 1 so the loads are coalesced either way)
+template <typename T, int V, int kN>
+__device__ __forceinline__ void load_row(const T* base, long long stride,
+                                         int r, int t, int nt, int dv,
+                                         typename Pack<T, V>::R (&out)[kN]) {
+  const T* row = base + static_cast<long long>(r) * stride;
 #pragma unroll
-  for (int k = 0; k < kVpt; ++k) {
-    const int j = t + k * nt;
-    wv[k] = j < d ? ldf(w + j) : 0.f;
-    acc[k] = 0.f;
+  for (int k = 0; k < kN; ++k) {
+    const int jv = t + k * nt;
+    out[k] = jv < dv ? ldv<T, V>(row + jv * V) : typename Pack<T, V>::R{};
   }
-  const float inv_d = 1.f / (float)d;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const T* gr = g + (long long)r * sg;
-    const T* dyr = dy + (long long)r * sdy;
-    float gv[kVpt], dyv[kVpt], dhv[kVpt];
+}
+
+template <typename T, typename W, int V, int kMaxT>
+__global__ void __launch_bounds__(kMaxT, kMaxT <= 256 ? 2 : 1)
+    rmsnorm_bwd_rows(const T* __restrict__ g, long long sg,
+                     const T* __restrict__ dy, long long sdy,
+                     const T* __restrict__ dh, long long sdh,
+                     const W* __restrict__ w, T* __restrict__ dx,
+                     long long sdx, float* __restrict__ partial, int rows,
+                     int d, float eps) {
+  using P = Pack<T, V>;
+  using R = typename P::R;
+  constexpr int kN = kElems / V;      // vectors a thread holds
+  __shared__ float2 red[2][kMaxThreads / 32];
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int warp = t >> 5, lane = t & 31, n_warps = nt >> 5;
+  const int dv = d / V;
+  const bool has_dh = dh != nullptr;
+  float wv[kN][V], acc[kN][V];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int jv = t + k * nt;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      wv[k][u] = jv < dv ? ldf(w + jv * V + u) : 0.f;
+      acc[k][u] = 0.f;
+    }
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  R cg[kN], cdy[kN], cdh[kN], ng[kN], ndy[kN], ndh[kN];
+  int r = blockIdx.x;
+  if (r < rows) {
+    load_row<T, V, kN>(g, sg, r, t, nt, dv, cg);
+    load_row<T, V, kN>(dy, sdy, r, t, nt, dv, cdy);
+    if (has_dh) load_row<T, V, kN>(dh, sdh, r, t, nt, dv, cdh);
+  }
+  int par = 0;
+  for (; r < rows; r += gridDim.x) {
+    // the next row's loads go out before this row reduces
+    const int rn = r + gridDim.x;
+    if (rn < rows) {
+      load_row<T, V, kN>(g, sg, rn, t, nt, dv, ng);
+      load_row<T, V, kN>(dy, sdy, rn, t, nt, dv, ndy);
+      if (has_dh) load_row<T, V, kN>(dh, sdh, rn, t, nt, dv, ndh);
+    }
+    float gv[kN][V], dyv[kN][V];
     float ss = 0.f, sgw = 0.f;
 #pragma unroll
-    for (int k = 0; k < kVpt; ++k) {  // dh too is requested before the sums
-      const int j = t + k * nt;
-      gv[k] = j < d ? ldf(gr + j) : 0.f;
-      dyv[k] = j < d ? ldf(dyr + j) : 0.f;
-      dhv[k] = (dh != nullptr && j < d) ? ldf(dh + (long long)r * sdh + j)
-                                        : 0.f;
-      ss += gv[k] * gv[k];
-      sgw += dyv[k] * wv[k] * gv[k];
-    }
-    const float2 s = block_sum2(ss, sgw, red);
-    const float rstd = rsqrtf(s.x * inv_d + eps);
-    const float c = rstd * s.y * inv_d;          // mean(gw * xhat)
+    for (int k = 0; k < kN; ++k) {
+      P::unpack(cg[k], gv[k]);
+      P::unpack(cdy[k], dyv[k]);
 #pragma unroll
-    for (int k = 0; k < kVpt; ++k) {
-      const int j = t + k * nt;
-      if (j < d) {
-        const float xh = gv[k] * rstd;
-        const float v = rstd * (dyv[k] * wv[k] - xh * c) + dhv[k];
-        dx[(long long)r * sdx + j] = cvt<T>(v);
-        acc[k] += dyv[k] * xh;
+      for (int u = 0; u < V; ++u) {
+        ss += gv[k][u] * gv[k][u];
+        sgw += dyv[k][u] * wv[k][u] * gv[k][u];
       }
     }
-  }
 #pragma unroll
-  for (int k = 0; k < kVpt; ++k) {
-    const int j = t + k * nt;
-    if (j < d) partial[(long long)blockIdx.x * d + j] = acc[k];
+    for (int o = 16; o; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sgw += __shfl_xor_sync(0xffffffffu, sgw, o);
+    }
+    if (n_warps > 1) {
+      if (lane == 0) red[par][warp] = make_float2(ss, sgw);
+      __syncthreads();
+      ss = sgw = 0.f;
+      for (int i = 0; i < n_warps; ++i) {
+        ss += red[par][i].x;
+        sgw += red[par][i].y;
+      }
+      par ^= 1;         // the next row writes the other buffer
+    }
+    const float rstd = rsqrtf(ss * inv_d + eps);
+    const float c = rstd * sgw * inv_d;          // mean(gw * xhat)
+    T* const dxr = dx + static_cast<long long>(r) * sdx;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int jv = t + k * nt;
+      if (jv < dv) {
+        float dhv[V], out[V];
+        if (has_dh) P::unpack(cdh[k], dhv);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const float xh = gv[k][u] * rstd;
+          out[u] = rstd * (dyv[k][u] * wv[k][u] - xh * c)
+                 + (has_dh ? dhv[u] : 0.f);
+          acc[k][u] += dyv[k][u] * xh;
+        }
+        *reinterpret_cast<R*>(dxr + jv * V) = P::pack(out);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      cg[k] = ng[k];
+      cdy[k] = ndy[k];
+      cdh[k] = ndh[k];
+    }
+  }
+  float* const pr = partial + static_cast<long long>(blockIdx.x) * d;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const int jv = t + k * nt;
+    if (jv < dv) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) pr[jv * V + u] = acc[k][u];
+    }
   }
 }
 
+// dw[j] = the sum over the n partial rows of column j: warp s of a CTA
+// sums rows s, s + 32, ... in order, then a fixed tree over the warps
 template <typename W>
-__global__ void rmsnorm_bwd_dw(const float* __restrict__ partial, int n,
-                               int d, W* __restrict__ dw) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  float s = 0.f;
-  for (int i = 0; i < n; ++i) s += partial[(long long)i * d + j];
-  dw[j] = cvt<W>(s);
+__global__ void __launch_bounds__(kDwCols * kDwSlices)
+    rmsnorm_bwd_dw(const float* __restrict__ partial, int n, int d,
+                   W* __restrict__ dw) {
+  __shared__ float red[kDwSlices][kDwCols + 1];
+  const int c = threadIdx.x % kDwCols, s = threadIdx.x / kDwCols;
+  const int j = blockIdx.x * kDwCols + c;
+  float v = 0.f;
+  if (j < d) {
+#pragma unroll 4
+    for (int i = s; i < n; i += kDwSlices)
+      v += partial[static_cast<long long>(i) * d + j];
+  }
+  red[s][c] = v;
+  __syncthreads();
+#pragma unroll
+  for (int h = kDwSlices / 2; h; h >>= 1) {
+    if (s < h) red[s][c] += red[s + h][c];
+    __syncthreads();
+  }
+  if (s == 0 && j < d) dw[j] = cvt<W>(red[0][c]);
+}
+
+template <typename T, typename W, int V, int kMaxT>
+int launch_rows(const void* g, long long sg, const void* dy, long long sdy,
+                const void* dh, long long sdh, const void* w, void* dx,
+                long long sdx, void* partial, int rows, int d, int n_ctas,
+                int nt, float eps, cudaStream_t s) {
+  rmsnorm_bwd_rows<T, W, V, kMaxT><<<n_ctas, nt, 0, s>>>(
+      (const T*)g, sg, (const T*)dy, sdy, (const T*)dh, sdh, (const W*)w,
+      (T*)dx, sdx, (float*)partial, rows, d, eps);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename W>
 int launch(const void* g, long long sg, const void* dy, long long sdy,
            const void* dh, long long sdh, const void* w, void* dx,
            long long sdx, void* partial, void* dw, int rows, int d,
-           int n_ctas, float eps, cudaStream_t s) {
-  int nt = (d + kVpt - 1) / kVpt;
-  nt = (nt + 31) / 32 * 32;
-  if (nt > kMaxThreads) return (int)cudaErrorInvalidValue;
-  rmsnorm_bwd_rows<T, W><<<n_ctas, nt, 0, s>>>(
-      (const T*)g, sg, (const T*)dy, sdy, (const T*)dh, sdh, (const W*)w,
-      (T*)dx, sdx, (float*)partial, rows, d, eps);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_dw<W><<<(d + 255) / 256, 256, 0, s>>>((const float*)partial,
-                                                     n_ctas, d, (W*)dw);
+           int n_ctas, float eps, int vec, cudaStream_t s) {
+  constexpr int kV = 16 / sizeof(T);
+  const int nt = (d + 32 * kElems - 1) / (32 * kElems) * 32;
+  if (nt > kMaxThreads || (vec && d % kV != 0))
+    return (int)cudaErrorInvalidValue;
+  int e;
+  if (vec)
+    e = nt <= 256
+        ? launch_rows<T, W, kV, 256>(g, sg, dy, sdy, dh, sdh, w, dx, sdx,
+                                     partial, rows, d, n_ctas, nt, eps, s)
+        : launch_rows<T, W, kV, kMaxThreads>(g, sg, dy, sdy, dh, sdh, w, dx,
+                                             sdx, partial, rows, d, n_ctas,
+                                             nt, eps, s);
+  else
+    e = nt <= 256
+        ? launch_rows<T, W, 1, 256>(g, sg, dy, sdy, dh, sdh, w, dx, sdx,
+                                    partial, rows, d, n_ctas, nt, eps, s)
+        : launch_rows<T, W, 1, kMaxThreads>(g, sg, dy, sdy, dh, sdh, w, dx,
+                                            sdx, partial, rows, d, n_ctas,
+                                            nt, eps, s);
+  if (e != cudaSuccess) return e;
+  rmsnorm_bwd_dw<W><<<(d + kDwCols - 1) / kDwCols, kDwCols * kDwSlices, 0,
+                      s>>>((const float*)partial, n_ctas, d, (W*)dw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dh may be NULL (the plain variant, or an add whose h has no gradient);
-// partial is n_ctas x d fp32 scratch; n_ctas <= rows.
+// partial is n_ctas x d fp32 scratch; n_ctas <= rows; vec: every row of g,
+// dy, dh and dx and their bases 16-byte aligned and d a multiple of a
+// 16-byte vector (the wrapper checks).
 extern "C" int tardis_rmsnorm_backward(
     const void* g, long long sg, const void* dy, long long sdy,
     const void* dh, long long sdh, const void* w, void* dx, long long sdx,
     void* partial, void* dw, int rows, int d, int n_ctas, float eps,
-    int x_dtype, int w_dtype, void* stream) {
+    int x_dtype, int w_dtype, int vec, void* stream) {
   if (d <= 0 || n_ctas <= 0 || n_ctas > rows)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0 && w_dtype == 0)
     return launch<float, float>(g, sg, dy, sdy, dh, sdh, w, dx, sdx, partial,
-                                dw, rows, d, n_ctas, eps, s);
+                                dw, rows, d, n_ctas, eps, vec, s);
   if (x_dtype == 0 && w_dtype == 1)
     return launch<float, __nv_bfloat16>(g, sg, dy, sdy, dh, sdh, w, dx, sdx,
-                                        partial, dw, rows, d, n_ctas, eps, s);
+                                        partial, dw, rows, d, n_ctas, eps,
+                                        vec, s);
   if (x_dtype == 1 && w_dtype == 0)
     return launch<__nv_bfloat16, float>(g, sg, dy, sdy, dh, sdh, w, dx, sdx,
-                                        partial, dw, rows, d, n_ctas, eps, s);
+                                        partial, dw, rows, d, n_ctas, eps,
+                                        vec, s);
   if (x_dtype == 1 && w_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(g, sg, dy, sdy, dh, sdh, w,
                                                 dx, sdx, partial, dw, rows, d,
-                                                n_ctas, eps, s);
+                                                n_ctas, eps, vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,9 +18,10 @@ backward yet.
 
 ``rmsnorm_backward(g, w, dy, dh=None)`` is K11: (dx, dw) of the plain
 variant over g = x, or of the add variant over g = h with dh the gradient
-of h (dx = dr).  On CUDA tensors it launches K11 (two kernels, counted as
-one launch; ``variants`` counts "plain" and "add"), on CPU tensors it runs
-the closed-form plain version.
+of h (dx = dr).  On CUDA tensors it launches K11 (two kernels -- the rows
+with their dw partials, then the partials' sum -- counted as one launch;
+``variants`` counts "plain" and "add"), on CPU tensors it runs the
+closed-form plain version.
 """
 from __future__ import annotations
 
@@ -94,10 +95,21 @@ rmsnorm_2d.launches = 0
 rmsnorm_2d.variants = {}    # launches per variant
 
 
-# the backward's dw partials: at most this many CTAs, each a row of D fp32
-# (fixed, so the order of dw's sums -- and its bits -- do not depend on the
-# card)
+# the backward's dw partials: one row of D fp32 a CTA, BWD_CTAS CTAs of
+# bwd_threads(D) threads for rows of D <= 2048 (two CTAs on each of an
+# H100's 132 SMs), proportionally more for narrower rows; fixed by D, so
+# the order of dw's sums -- and its bits -- do not depend on the card
 BWD_CTAS = 264
+
+
+def bwd_threads(d: int) -> int:
+    """Threads of a K11 row CTA: 8 columns a thread, whole warps."""
+    return -(-d // 256) * 32
+
+
+def bwd_ctas(rows: int, d: int) -> int:
+    """K11's row CTAs for ``rows`` rows of ``d``: one CTA a row at most."""
+    return min(rows, BWD_CTAS * max(1, 256 // bwd_threads(d)))
 
 
 def rmsnorm_backward(g, w, dy, *, eps: float = 1e-5, dh=None,
@@ -128,19 +140,23 @@ def rmsnorm_backward(g, w, dy, *, eps: float = 1e-5, dh=None,
         raise ValueError("the rmsnorm backward kernel needs a contiguous "
                          "last dim")
     r, d = g.shape
-    if -(-d // 8) > 1024:
+    if bwd_threads(d) > 1024:
         raise ValueError(f"rows of {d} values exceed what the rmsnorm "
                          f"backward kernel holds (8192)")
     dx = torch.empty((r, d), dtype=g.dtype, device=g.device)
     dw = torch.empty_like(w)
     if r == 0:
         return dx, dw.zero_()
-    n = min(r, BWD_CTAS)
+    n = bwd_ctas(r, d)
     partial = torch.empty((n, d), dtype=torch.float32, device=g.device)
+    rows = [t for t in (g, dy, dh, dx) if t is not None]
+    vec = int(d % (16 // g.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
+        for t in rows))
     launch("tardis_rmsnorm_backward", ptr(g), g.stride(0), ptr(dy),
            dy.stride(0), ptr(dh), 0 if dh is None else dh.stride(0), ptr(w),
            ptr(dx), d, ptr(partial), ptr(dw), r, d, n, float(eps),
-           _DTYPES[g.dtype], _DTYPES[w.dtype])
+           _DTYPES[g.dtype], _DTYPES[w.dtype], vec)
     variant = variant or ("plain" if dh is None else "add")
     rmsnorm_backward.launches += 1
     rmsnorm_backward.variants[variant] = \

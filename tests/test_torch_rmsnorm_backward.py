@@ -129,22 +129,35 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 2048), (300, 2048), (33, 5120),
-                                   (5, 100), (1, 36)])
-@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
-                                   ("bfloat16", "bfloat16"),
-                                   ("bfloat16", "float32"),
-                                   ("float32", "bfloat16")])
-@pytest.mark.parametrize("variant", ["plain", "add"])
-def test_cuda_rmsnorm_backward_matches_plain(cuda, shape, xd, wd, variant):
-    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+# K11 on the card: the training shape, widths that are not a multiple of a
+# thread's 8 columns or of a CTA's 256 (80, 1000, 2304), a row wider than
+# 1024 threads' 16-byte vectors would hold in one pass (5120), rows whose
+# bf16 width breaks the 16-byte vectors (100, 36: the scalar path), and
+# fewer rows than CTAs (5, 1, 2)
+CARD_SHAPES = [(4096, 2048), (300, 2048), (33, 5120), (5, 100), (1, 36),
+               (7, 80), (9, 1000), (2, 2048), (64, 2304)]
+
+
+def _card_inputs(cuda, shape, xd, wd, variant, pad=0):
+    """x, w, dy, dh on the card; pad > 0: the rows of x, dy and dh are
+    column slices of rows ``pad`` wider (a row stride larger than D)."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + pad)
     xdt, wdt = getattr(torch, xd), getattr(torch, wd)
-    x = (3 * torch.randn(shape, generator=g, device=cuda)).to(xdt)
+    wide = (shape[0], shape[1] + pad)
+
+    def rows(scale=1.0):
+        t = (scale * torch.randn(wide, generator=g, device=cuda)).to(xdt)
+        return t[:, :shape[1]]
+    x = rows(3.0)
     w = (1 + 0.5 * torch.randn(shape[-1], generator=g, device=cuda)).to(wdt)
-    dy = torch.randn(shape, generator=g, device=cuda).to(xdt)
-    dh = torch.randn(shape, generator=g, device=cuda).to(xdt) \
-        if variant == "add" else None
+    dy = rows()
+    dh = rows() if variant == "add" else None
+    return x, w, dy, dh
+
+
+def _hold_k11(x, w, dy, dh, xd, wd, variant):
+    """Two K11 calls: bit-identical, each output to its dtype's tolerance
+    against the plain version."""
     n0 = RK.rmsnorm_backward.variants.get(variant, 0)
     got = RK.rmsnorm_backward(x, w, dy, dh=dh)
     again = RK.rmsnorm_backward(x, w, dy, dh=dh)
@@ -163,6 +176,33 @@ def test_cuda_rmsnorm_backward_matches_plain(cuda, shape, xd, wd, variant):
     scale = float(want[1].float().abs().max())
     torch.testing.assert_close(got[1].float(), want[1].float(),
                                rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("bfloat16", "float32"),
+                                   ("float32", "bfloat16")])
+@pytest.mark.parametrize("variant", ["plain", "add"])
+def test_cuda_rmsnorm_backward_matches_plain(cuda, shape, xd, wd, variant):
+    _hold_k11(*_card_inputs(cuda, shape, xd, wd, variant), xd, wd, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7, 80), (9, 1000), (300, 2048),
+                                   (2, 2304)])
+@pytest.mark.parametrize("pad", [8, 1])
+@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("variant", ["plain", "add"])
+def test_cuda_rmsnorm_backward_row_stride(cuda, shape, pad, xd, wd,
+                                          variant):
+    """Rows at a stride larger than D: 16-byte aligned rows (pad 8) and
+    rows that are not (pad 1: the scalar path)."""
+    x, w, dy, dh = _card_inputs(cuda, shape, xd, wd, variant, pad)
+    assert x.stride(0) == shape[1] + pad
+    _hold_k11(x, w, dy, dh, xd, wd, variant)
 
 
 @pytest.mark.cuda

@@ -211,6 +211,55 @@ def test_sim_run_checks_its_state():
         K.sim_run(st, geom, "directory")        # no sharer bitmask
 
 
+def test_k9_smem_bytes_and_variant_choice():
+    fig4 = Geometry(n_cores=64)                  # 32 sets x 4 ways
+    # 15 int32 arrays and 3 byte arrays a core; the L1's 8192 entries at
+    # 25 bytes each
+    assert K.smem_bytes(fig4, "global") == 15 * 256 + 3 * 64
+    assert K.smem_bytes(fig4, "smem") == 15 * 256 + 3 * 64 + 8192 * 25
+    assert K.smem_bytes(fig4, "smem") <= K.SMEM_LIMIT
+    assert K.pick_variant(fig4) == "smem"
+    tiny = Geometry(**TINY)
+    assert K.smem_bytes(tiny, "smem") == 15 * 32 + 3 * 16 + 6 * 256 + 64
+    assert K.pick_variant(tiny) == "smem"
+    fig8 = Geometry(n_cores=256)
+    assert K.smem_bytes(fig8, "smem") > K.SMEM_LIMIT
+    assert K.pick_variant(fig8) == "global"
+    assert K.smem_bytes(fig8, "global") <= K.SMEM_LIMIT
+    assert K.pick_variant(fig4, "global") == "global"
+    with pytest.raises(ValueError, match="unknown K9 variant"):
+        K.pick_variant(fig4, "registers")
+
+
+def test_k9_forcing_smem_on_a_state_that_does_not_fit_raises():
+    geom = Geometry(n_cores=256, trace_len=1, log_size=0)
+    with pytest.raises(ValueError, match="smem variant needs 835328 bytes"):
+        K.pick_variant(geom, "smem")
+    tr = as_port(litmus())
+    small = Geometry(n_cores=2, l1_sets=4096, l1_ways=4,
+                     trace_len=tr.length, log_size=0)
+    st = TS.init_state(small, tr, SimConfig().as_tensors(), directory=False)
+    n0 = K.sim_run.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        K.sim_run(st, small, "tardis", variant="smem")
+    assert K.sim_run.launches == n0 and int(st["steps"]) == 0
+
+
+@pytest.mark.parametrize("variant", [None, "smem", "global"])
+def test_k9_cpu_state_runs_the_plain_loop(variant):
+    tr = as_port(litmus())
+    geom = Geometry(n_cores=2, trace_len=tr.length, log_size=16)
+    cfg = SimConfig().as_tensors()
+    got = TS.init_state(geom, tr, cfg, directory=True)
+    want = TS.init_state(geom, tr, cfg, directory=True)
+    n0, v0 = K.sim_run.launches, dict(K.sim_run.variants)
+    assert K.sim_run(got, geom, "directory", variant=variant) is got
+    sim_run_ref(want, geom, "directory")
+    assert_states_equal(want, got)
+    assert int(got["steps"]) > 0
+    assert K.sim_run.launches == n0 and K.sim_run.variants == v0
+
+
 # --- CUDA lane: K9 against the plain loop on the card ----------------------
 
 @pytest.fixture
@@ -247,8 +296,9 @@ CARD_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["smem", "global"])
 @pytest.mark.parametrize("case", sorted(CARD_CASES))
-def test_cuda_sim_run_matches_plain(cuda, case):
+def test_cuda_sim_run_matches_plain(cuda, case, variant):
     make, proto, geom_kw, cfg_kw = CARD_CASES[case]
     tr = make()
     cfg = SimConfig(**{"max_steps": 50_000, **cfg_kw})
@@ -262,9 +312,10 @@ def test_cuda_sim_run_matches_plain(cuda, case):
                              directory=proto == "directory", device=cuda)
 
     got, want = state(), state()
-    n0 = K.sim_run.launches
-    K.sim_run(got, geom, proto)
+    n0, v0 = K.sim_run.launches, K.sim_run.variants.get(variant, 0)
+    K.sim_run(got, geom, proto, variant=variant)
     assert K.sim_run.launches == n0 + 1
+    assert K.sim_run.variants[variant] == v0 + 1
     sim_run_ref(want, geom, proto)
     torch.cuda.synchronize()
     assert_states_equal(want, got)
