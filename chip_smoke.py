@@ -112,12 +112,13 @@ SDPA's and ``F.rms_norm``'s backward (eager ``torch.autograd.grad``);
 K6's LSE against the plain LSE (2e-4); K10's kernels' times (D, dq,
 dk/dv, the GQA partials' sum), its variant, its schedule's largest and
 mean CTA work and its two bounds (fp32 SIMT; three TF32 products); K6 at
-the training shape in fp32 with and without its LSE write beside SDPA's
-fp32 forward; phase 3 runs ``runtime.train``
+the training shape in fp32 (its tf32x3 variant) with and without its LSE
+write beside SDPA's fp32 forward; phase 3 runs ``runtime.train``
 on full-width, full-depth tinyllama-1.1b in fp32 weights (4 steps of
 4 x 1024 tokens, no checkpoint; the earlier paths' weights freed first)
 with the launch counts set to 0 before and read after (K6 and K10 22 a
-step, K8 and K11 45: 1 plain + 44 add), every parameter's gradient
+step, all on their tf32x3 variants, K8 and K11 45: 1 plain + 44 add),
+every parameter's gradient
 finite and non-zero, ms a step, tokens/s, the peak memory and one warm
 step profiled; phase 4 holds the card against the CPU at full width and 2
 layers (loss, every gradient leaf, the parameters after 2 AdamW steps),
@@ -142,9 +143,12 @@ Mamba2's rmsnorm(y * silu(z))) at the prefill rows (4 x 3072) of
 tinyllama's norms and zamba2's, and at decode's rows, every (row, w)
 dtype mix, the plain one against ``F.rms_norm`` and the fused ones beside
 the eager chain they replace (``unfused_ms``).  K6's bound takes the
-bf16 tensor-core peak (989 TFLOP/s).  Phase 3 asserts that K6 and K8
+bf16 tensor-core peak (989 TFLOP/s); each K6 call's variant is held
+(bf16: "wgmma"; fp32: "tf32x3").  Phase 3 asserts that K6 and K8
 launch on the paged path and both wave paths and K7 on zamba2's, and
-K1-K4, K6 and K8 on the kimi-k2 paged path.
+K1-K4, K6 and K8 on the kimi-k2 paged path; every bf16 K6 launch there
+on "wgmma".  K3's rows carry the time of the library's empty kernel
+(``floor_ms``): the floor any one-launch kernel pays.
 
     python3 chip_smoke.py --phase4-seeds 0,1,2,3
     python3 chip_smoke.py --phase4-mutants 0,1,2,3
@@ -435,16 +439,23 @@ def phase2_kernels(rows):
                           device=dev)[:b].to(torch.int32)
     dup = torch.tensor([5, 9, 5, 77, 9, 5, 3, 77], dtype=torch.int32,
                        device=dev)
-    for idx, lo in ((sidx, 0), (dup, 0), (dup, 2560)):
+    # ... and 300 entries (the duplicate scan spans several strides of
+    # the CTA), id 7 at the first, a middle and the last position
+    many = torch.randperm(n_blocks * chunk, generator=g,
+                          device=dev)[:300].to(torch.int32)
+    many[0] = many[150] = many[299] = 7
+    tok_many = torch.randn((300, token_row), generator=g,
+                           device=dev).to(torch.bfloat16)
+    for idx, lo in ((sidx, 0), (dup, 0), (dup, 2560), (many, 0)):
         w = token_row - lo
-        r = tok[:, :w].contiguous()
+        r = (tok_many if idx is many else tok)[:, :w].contiguous()
         a = view.clone()
         c = view.clone()
         K.scatter_rows(a, idx, r, col_lo=lo)
         R.scatter_rows_ref(c, idx, r, lo)
         assert torch.equal(a.view(torch.int16), c.view(torch.int16)), \
             f"K3 scatter (col_lo={lo}) differs from plain"
-    del a, c
+    del a, c, tok_many
     nbytes = 2 * b * token_row * 2 + b * 4
     lib_idx = sidx.long()
     rows.append(dict(
@@ -480,11 +491,17 @@ def phase2_kernels(rows):
                stack.offset + (stack.n_layers + li) * hkv * dh)
         del kpool
     launch_ms = median_ms(lambda: wts.add_(0), iters=50)
+    # the floor of a one-launch kernel: the library's empty kernel, timed
+    # as the rows are (graph replay)
+    floor_ms = graph_ms(K.empty_probe)
     for r in rows:
         r["route"] = "cuda"
         r["launch_ms"] = launch_ms
+        if r["name"].startswith("row_copy"):
+            r["floor_ms"] = floor_ms
         _log_row(r)
-    log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us)")
+    log(f"  (one PyTorch launch of a 1-element add: {launch_ms * 1e3:.2f} us;"
+        f" the empty kernel, graph replay: {floor_ms * 1e3:.2f} us)")
     del pool, view
 
 
@@ -588,7 +605,9 @@ def _log_row(r):
         f" us ({r['bound_by']})  library "
         + (f"{r['library_ms'] * 1e3:9.2f} us" if r["library_ms"]
            is not None else "-") + f"  [{r['shape']}"
-        + (f"; {r['variant']} variant]" if r.get("variant") else "]"))
+        + (f"; {r['variant']} variant" if r.get("variant") else "")
+        + (f"; empty-kernel floor {r['floor_ms'] * 1e3:.2f} us]"
+           if r.get("floor_ms") else "]"))
 
 
 def phase2_dense_decode(rows):
@@ -717,7 +736,10 @@ def phase2_prefill_kernels(rows):
         errs = {}
         for tag, dt, tol in checks:
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-            got = FK.flash_prefill(q, k, v, **kw)
+            got, variant = variant_of(FK.flash_prefill, lambda: (
+                FK.flash_prefill(q, k, v, **kw)))
+            assert variant == ("wgmma" if dt == b16 else "tf32x3"), \
+                f"K6 {name} {tag} took the {variant} variant"
             want = plain(q, k, v)
             torch.testing.assert_close(got.float(), want.float(), **tol)
             if dt == b16:
@@ -735,12 +757,12 @@ def phase2_prefill_kernels(rows):
             torch.tensor(kv_len, device=dev)), min=0)
         nops = 4 * b * h * dh * int(live.sum())
         if any(tag == "fp32" for tag, _dt, _tol in checks) and sq > 16:
-            # the fp32 pair runs the SIMT variant: its time and fp32 bound
+            # the fp32 pair runs the tf32x3 variant: its time and bounds
             q, k, v = q32, k32, v32
             ms = graph_ms(lambda: FK.flash_prefill(q, k, v, **kw), 5)
-            log(f"  {name} fp32: {ms * 1e3:.2f} us, bound "
-                f"{bound(0, nops)[0] * 1e3:.3f} us (operations at 67 "
-                f"TFLOP/s fp32)")
+            log(f"  {name} fp32 (tf32x3): {ms * 1e3:.2f} us, bounds: three "
+                f"TF32 products {bound(0, 3 * nops, TF32_TC_FLOPS)[0] * 1e3:.3f}"
+                f" us, fp32 SIMT {bound(0, nops)[0] * 1e3:.3f} us")
         q, k, v = q32.to(b16), k32.to(b16), v32.to(b16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         qpos = q_off + torch.arange(sq, device=dev)
@@ -770,7 +792,7 @@ def phase2_prefill_kernels(rows):
             "flash_prefill.cu", replaces="src/repro/kernels/flash_attention/"
             "kernel.py:64", max_abs_err=errs["bf16"],
             shape=f"B={b} Sq={sq} Skv={skv} q_offset={q_off} kv_len={kv_len} "
-            f"H={h} Hkv={hkv} dh={dh} bf16",
+            f"H={h} Hkv={hkv} dh={dh} bf16", variant="wgmma",
             **timings(lambda q=q, k=k, v=v, kw=kw: FK.flash_prefill(
                 q, k, v, **kw), lambda q=q, k=k, v=v: plain(q, k, v),
                 library, iters=5 if big else 20,
@@ -1172,7 +1194,9 @@ def phase2_backward_kernels(rows):
     # --- K6 at the training shape, fp32, with its LSE write ----------------
     b, s, h, hkv, dh = 4, 1024, 32, 4, 64
     q, k, v = randn(b, s, h, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh)
-    out, lse = FK.flash_prefill(q, k, v, return_lse=True)
+    (out, lse), variant = variant_of(FK.flash_prefill, lambda: (
+        FK.flash_prefill(q, k, v, return_lse=True)))
+    assert variant == "tf32x3", f"K6 at the training shape: {variant}"
     want = flash_attention_ref(q, k, v)
     lse_want = flash_attention_lse_ref(q, k)
     torch.testing.assert_close(out, want, **FP32)
@@ -1182,10 +1206,10 @@ def phase2_backward_kernels(rows):
     del out, want
     no_lse_ms = graph_ms(lambda: FK.flash_prefill(q, k, v), 5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    # operations: a QK dot and a PV product per (query, live key, head) at
-    # fp32's 67 TFLOP/s, or as three TF32 products each at the TF32 tensor
-    # cores' 495 (the tighter one, K10's yardstick); bytes: q, k, v read,
-    # the output and LSE written
+    # operations: a QK dot and a PV product per (query, live key, head) as
+    # three TF32 products each at the TF32 tensor cores' 495 TFLOP/s (the
+    # tf32x3 variant's arithmetic; fp32's 67 beside it); bytes: q, k, v
+    # read, the output and LSE written
     nops = 4 * b * h * dh * (s * (s + 1) // 2)
     nbytes = 4 * (2 * b * s * h * dh + 2 * b * s * hkv * dh + b * h * s)
     simt_b = bound(nbytes, nops)[0]
@@ -1193,7 +1217,7 @@ def phase2_backward_kernels(rows):
         name="flash_prefill.train", wrapper="flash_prefill", path="train",
         source="src/repro_torch/kernels/flash_attention/csrc/"
         "flash_prefill.cu", replaces="src/repro/kernels/flash_attention/"
-        "kernel.py:64", max_abs_err=err, variant="simt",
+        "kernel.py:64", max_abs_err=err, variant="tf32x3",
         shape=f"B={b} S={s} H={h} Hkv={hkv} dh={dh} fp32, LSE written "
         f"(without: {no_lse_ms * 1e3:.2f} us; library: SDPA fp32 "
         f"forward; bound: three TF32 products, fp32 SIMT "
@@ -1479,9 +1503,11 @@ def phase3_main_path(smi):
     log(f"launches by variant on the main path: {variants}")
     missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    # every K4 launch of the bf16 path on the tensor-core variant
+    # every K4 and K6 launch of the bf16 path on the tensor-core variant
     assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
         f"K4 launches by variant: {variants['paged_decode']}"
+    assert variants["flash_prefill"] == {"wgmma": counts["flash_prefill"]}, \
+        f"K6 launches by variant: {variants['flash_prefill']}"
     del cluster
     _hold_step("paged path, tinyllama-1.1b", cfg, params, "paged")
     profile_main_path(cfg, params, smi)
@@ -2140,10 +2166,13 @@ def phase3_wave_paths(smi):
         missing = [k for k in WAVE_KERNELS[arch] if counts[k] <= 0]
         assert not missing, \
             f"kernels never launched on the {arch} wave path: {missing}"
-        # every K7 launch of the bf16 path on the tensor-core variant
+        # every K7 and K6 launch of the bf16 path on the tensor-core variant
         assert variants["ssd_chunk"] == ({"mma": counts["ssd_chunk"]}
                                          if counts["ssd_chunk"] else {}), \
             f"K7 launches by variant: {variants['ssd_chunk']}"
+        assert variants["flash_prefill"] == {
+            "wgmma": counts["flash_prefill"]}, \
+            f"K6 launches by variant: {variants['flash_prefill']}"
         del cluster
         torch.cuda.empty_cache()
         _hold_step(f"wave path, {arch}", cfg, params, "wave")
@@ -2231,6 +2260,8 @@ def phase3_kimi_path(smi):
     assert not missing, f"kernels never launched on the kimi path: {missing}"
     assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
         f"K4 launches by variant (kimi): {variants['paged_decode']}"
+    assert variants["flash_prefill"] == {"wgmma": counts["flash_prefill"]}, \
+        f"K6 launches by variant (kimi): {variants['flash_prefill']}"
     del cluster
     torch.cuda.empty_cache()
     _hold_step("paged path, kimi-k2-1t-a32b", cfg, params, "paged")
@@ -2318,6 +2349,9 @@ def phase3_train_path(smi):
             f"{k} by variant: {variants[k]}"
     assert variants["flash_backward"] == {
         "tf32x3": TRAIN_STEPS * cfg.n_layers}, variants["flash_backward"]
+    # K6's fp32 forward on its tensor-core variant: 22 launches a step
+    assert variants["flash_prefill"] == {
+        "tf32x3": TRAIN_STEPS * cfg.n_layers}, variants["flash_prefill"]
     params, opt_state = out["params"], out["opt_state"]
     del out, opt_state
     gc.collect()
@@ -3190,7 +3224,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
-            "unfused_ms")
+            "unfused_ms", "floor_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
     # main path; K10 and K11: the training path); K8's, K10's and K11's
     # rows count their variant's
@@ -3207,6 +3241,7 @@ def main() -> int:
                          else c.get(wrapper, 0))
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)
+        r.setdefault("floor_ms", None)
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

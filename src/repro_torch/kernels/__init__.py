@@ -17,8 +17,8 @@ from typing import Callable, Dict
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper of the port by name; each carries an integer
     ``launches`` that counts the launches of its kernel (and nothing
-    else); a wrapper with several kernels or variants (K4, K7, K8, K9,
-    K10, K11) also counts them by variant in ``variants``."""
+    else); a wrapper with several kernels or variants (K4, K6, K7, K8,
+    K9, K10, K11) also counts them by variant in ``variants``."""
     from .coherence_sim import kernel as cs
     from .decode_attention import kernel as da
     from .flash_attention import kernel as fa

@@ -105,12 +105,13 @@ SIGNATURES = {
     "tardis_write_advance": [_VP] * 3 + [_I32] * 3 + [_VP] * 4,
     "tardis_gather_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
     "tardis_scatter_rows": [_VP, _VP, _I32, _I64, _I64, _I64, _VP, _VP],
+    "tardis_empty": [_VP],
     "tardis_paged_decode": ([_VP] * 6 + [_I32] * 6 + [_I64, _I32, _I32, _F32]
                             + [_I32] * 4 + [_VP, _VP]),
     "tardis_dense_decode": ([_VP] * 4 + [_I32] * 6 + [_I64] * 3
                             + [_F32, _I32, _I32, _I32, _VP]),
     "tardis_flash_prefill": ([_VP] * 5 + [_I32] * 5 + [_I64] * 6
-                             + [_I32] * 3 + [_F32, _I32, _I32, _VP]),
+                             + [_I32] * 3 + [_F32, _I32, _I32, _I32, _VP]),
     "tardis_ssd_chunk": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
                          + [_VP] * 3 + [_I64] * 3 + [_I32] * 9
                          + [_VP] * 3),

@@ -101,11 +101,6 @@ struct Args {
   int q_vec, kv_vec, o_vec;             // whole 16-byte chunks (cp.async)
 };
 
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 __device__ __forceinline__ bool live(const Args& a, int kpos, int qpos) {
   return kpos < a.kv_len && (!a.causal || kpos <= qpos);
 }
@@ -120,95 +115,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 }
 
 // ---- the two kinds of tensor-core products --------------------------------
+// (OpTf32, split_tf32 and mma_tf32 live in tardis_hopper.cuh: K6's tf32x3
+// variant shares them)
 
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero:
-// cvt.rna's rounding for a finite x, in two integer operations -- cvt.rna
-// itself compiles to a longer sequence that also handles NaN and inf),
-// lo = x - hi exactly (|lo| <= 2^-11 |x|), handed to the mma as it is: the
-// mma reads its top 19 bits, within 2^-10 |lo| of it.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-// d (16 x 8, fp32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ unsigned pack_rows(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
   return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
          (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
-
-// The fragments of one warp's products, for lane (grp = lane / 4, tig =
-// lane % 4).  A tile `t` is row-major in shared memory at a pitch of `ld`
-// elements.  load_a: A (16 x KS) = t[r][k0 + k] for the warp's 16 rows
-// (t points at its row 0).  load_bt: B (KS x 8)[k][n] = t[n0 + n][k0 + k]
-// (the tile's rows are B's columns: K for Q.K^T).  load_b: B (KS x 8)[k][n]
-// = t[k0 + k][n0 + n] (the tile's rows are B's rows: K for dS.K), its k in
-// the order a_from_c leaves.  a_from_c: the A fragment of k-step kk from
-// the fp32 accumulators c of the 8-column n tiles of a 16-row product.
-struct OpTf32 {
-  using TS = float;
-  static constexpr int KS = 8;
-  struct A { unsigned hi[4], lo[4]; };
-  struct B { unsigned hi[2], lo[2]; };
-  __host__ __device__ static constexpr int pitch(int dh) {
-    return (dh + 7) / 8 * 8 + 4;
-  }
-  __device__ static A load_a(const float* t, int ld, int k0) {
-    const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
-    const float* p = t + grp * ld + k0 + tig;
-    A a;
-    split_tf32(p[0], a.hi[0], a.lo[0]);
-    split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
-    split_tf32(p[4], a.hi[2], a.lo[2]);
-    split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
-    return a;
-  }
-  __device__ static B load_bt(const float* t, int ld, int n0, int k0) {
-    const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
-    const float* p = t + (n0 + grp) * ld + k0 + tig;
-    B b;
-    split_tf32(p[0], b.hi[0], b.lo[0]);
-    split_tf32(p[4], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // k = tig holds row 2 tig, k = tig + 4 row 2 tig + 1 (a_from_c's order)
-  __device__ static B load_b(const float* t, int ld, int k0, int n0) {
-    const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
-    const float* p = t + (k0 + 2 * tig) * ld + n0 + grp;
-    B b;
-    split_tf32(p[0], b.hi[0], b.lo[0]);
-    split_tf32(p[ld], b.hi[1], b.lo[1]);
-    return b;
-  }
-  // c[kk] holds (grp, 2 tig + e) in c[kk][e] and (grp + 8, ...) in
-  // c[kk][2 + e]: column 2 tig becomes k = tig, 2 tig + 1 k = tig + 4
-  template <int N>
-  __device__ static A a_from_c(const float (&c)[N][4], int kk) {
-    A a;
-    split_tf32(c[kk][0], a.hi[0], a.lo[0]);
-    split_tf32(c[kk][2], a.hi[1], a.lo[1]);
-    split_tf32(c[kk][1], a.hi[2], a.lo[2]);
-    split_tf32(c[kk][3], a.hi[3], a.lo[3]);
-    return a;
-  }
-  // the small products first
-  __device__ static void mma(float (&d)[4], const A& a, const B& b) {
-    mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-    mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
-    mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
-  }
-};
 
 struct OpBf16 {
   using TS = __nv_bfloat16;
@@ -254,33 +168,6 @@ struct OpBf16 {
 
 template <typename TQ> struct OpOf { using type = OpTf32; };
 template <> struct OpOf<__nv_bfloat16> { using type = OpBf16; };
-
-// Rows [0, n) of a (position, Dh) slice at row stride rs into NROWS rows
-// of a shared tile at pitch ld; rows n.. are zero.  By 16-byte cp.async
-// when the tile keeps the global type and `vec` (the wait is the
-// caller's), else by plain loads (widening bf16 to fp32).
-template <typename TG, typename TS, int NROWS, int NT>
-__device__ __forceinline__ void stage(TS* dst, int ld, const TG* src,
-                                      long long rs, int n, int dh,
-                                      bool vec) {
-  if constexpr (std::is_same<TG, TS>::value) {
-    if (vec) {
-      constexpr int E = 16 / sizeof(TS);
-      const int cpr = dh / E;
-      for (int x = threadIdx.x; x < NROWS * cpr; x += NT) {
-        const int r = x / cpr, c = x - r * cpr;
-        const bool ok = r < n;
-        cp_async16(dst + r * ld + c * E, ok ? src + r * rs + c * E : src,
-                   ok);
-      }
-      return;
-    }
-  }
-  for (int x = threadIdx.x; x < NROWS * dh; x += NT) {
-    const int r = x / dh, d = x - r * dh;
-    dst[r * ld + d] = from_f32<TS>(r < n ? ldf(src + r * rs + d) : 0.f);
-  }
-}
 
 // zeros in the columns [dh, pitch) of `rows` shared rows (read by the
 // bf16 k16 steps past a Dh that is not a multiple of 16)

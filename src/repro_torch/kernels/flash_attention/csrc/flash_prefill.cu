@@ -15,12 +15,22 @@
 // place.  No transpose, no pad of Dh to 128 (the TPU wrapper's pad would
 // read 60 % more at Dh = 80); any Dh <= 256.
 //
-// The SIMT kernel (fp32 q): grid (ceil(Sq * G / 64), Hkv, B).  A CTA owns
+// Three variants, chosen by the wrapper (kernel.py: pick_variant) and
+// passed in; a variant that cannot take the call returns an error -- no
+// quiet fallback to another:
+// * "tf32x3" (flash_prefill_tf32.cu): an fp32 q over fp32 or
+//   bf16 K/V, Dh <= 128 -- every product as three TF32 products on
+//   mma.sync.  The training path and the fp32 serving lanes run it.
+// * "wgmma" (below): the bf16 pair on TMA + wgmma.
+// * "simt": what neither takes -- Dh > 128, a bf16 Dh that is not a
+//   multiple of 16, a bf16 view TMA cannot map.
+//
+// The SIMT kernel: grid (ceil(Sq * G / 64), Hkv, B).  A CTA owns
 // 64 (query, head) rows of ONE KV head: the flat row f = qi * G + g walks
 // the G query heads of that KV head for consecutive queries (8 queries x
 // 8 heads at tinyllama's G = 8, 64 queries at zamba2's G = 1), so every
-// K/V tile it stages is used by all G heads (so do the wgmma variant's
-// 128-row CTAs).  It walks 64-position KV tiles only up to
+// K/V tile it stages is used by all G heads (so do the other variants'
+// CTAs).  It walks 64-position KV tiles only up to
 // min(kv_len, q_offset + its last query + 1): tiles past the causal
 // diagonal or past kv_len are never loaded, and the ragged Sq / Skv edges
 // are masked in the kernel (the TPU kernel asserted that the lengths
@@ -30,7 +40,7 @@
 // and sum run over the 16 threads of a row with shuffles; P goes to
 // shared memory and each thread accumulates its 4 rows x ceil(Dh / 16)
 // output columns in registers.
-//
+
 // The bf16 pair (Dh a multiple of 16 up to 128, K/V views in whole
 // 16-byte rows) runs flash_prefill_wgmma on the tensor cores instead.
 // P is rounded to bf16 for P.V, as FlashAttention does, while l sums the
@@ -40,9 +50,10 @@
 //
 // Bound on the H100: operations.  At S = 3072 a (b, kv head) pair does
 // ~S^2 * Dh * G * 2 multiply-adds over ~S * Dh * 4 bytes of K/V: hundreds
-// of flop per byte.  The fp32 pair runs its products as fp32 SIMT FMAs
-// (67 TFLOP/s peak; no TF32, the fp32 tolerance is 2e-4), and so does a
-// float32 q over bfloat16 K/V.  The first bf16 design reached 13 % of the
+// of flop per byte.  The SIMT kernel runs its products as fp32 FMAs
+// (67 TFLOP/s peak; no TF32, the fp32 tolerance is 2e-4); it ran both
+// fp32-q pairs before the tf32x3 variant (1221.73 us at the training
+// shape on an H100, 21 % of that bound's speed).  The first bf16 design reached 13 % of the
 // bf16 tensor-core peak (989 TFLOP/s): mma.sync on 64-row CTAs, a
 // two-buffer cp.async ring with two CTA barriers a tile, the causal /
 // kv_len mask evaluated on every element of every tile, expf with the
@@ -76,9 +87,10 @@
 //   diagonal of the warpgroup's first row.
 // * CTAs are issued longest-first (the last query rows walk the most
 //   tiles).
-// A view TMA cannot map (a stride TMA refuses) takes the SIMT kernel.
+// A view TMA cannot map (a stride TMA refuses) takes the SIMT kernel (the
+// wrapper checks the strides and alignment TMA needs).
 //
-// The LSE for the backward (K10): given a non-null `lse`, both variants
+// The LSE for the backward (K10): given a non-null `lse`, every variant
 // also write each query row's log-sum-exp of its live scaled scores,
 // m * scale + log(l) from the row's running max and sum (fp32, (B, H,
 // Sq)), +inf on a row with no live key (l = 0), so that K10 need not
@@ -858,7 +870,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 // The bf16 pair on TMA + wgmma where Dh is a multiple of 16 up to 128 and
 // the K/V views are whole 16-byte rows TMA takes; -1 when it does not
-// apply (the SIMT kernel takes the call).
+// apply (the wrapper picks the SIMT kernel for such a call, so -1 here is
+// an error).
 int try_wgmma(const void* q, const void* k, const void* v, void* out,
               float* lse, int b, int sq, int hkv, int g, int dh,
               long long qsb, long long qst, long long qsh, long long ksb,
@@ -921,18 +934,29 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+// The tf32x3 variant (flash_prefill_tf32.cu).
+int tardis_flash_prefill_tf32(const void* q, const void* k, const void* v,
+                              void* out, float* lse, int b, int sq, int hkv,
+                              int g, int dh, long long qsb, long long qst,
+                              long long qsh, long long ksb, long long kst,
+                              long long ksh, int q_offset, int kv_len,
+                              int causal, float scale, int kv_dtype,
+                              cudaStream_t s);
+
 // dtype codes: 0 = float32, 1 = bfloat16.  q (B, Sq, H, Dh) at strides
 // (qsb, qst, qsh) and out (B, Sq, H, Dh) contiguous, both in q_dtype; lse
 // null or fp32 (B, H, Sq) contiguous; k and v (B, Skv, Hkv, Dh) at the
 // shared strides (ksb, kst, ksh) in kv_dtype: both float32, both
 // bfloat16, or a float32 q over bfloat16 K/V.  Dh is contiguous
-// everywhere.  kv_len <= Skv (the wrapper clamps it).
+// everywhere.  kv_len <= Skv (the wrapper clamps it).  variant: 0 =
+// simt, 1 = wgmma, 2 = tf32x3 (kernel.py: VARIANTS); cudaErrorInvalidValue
+// where it does not take the call.
 extern "C" int tardis_flash_prefill(
     const void* q, const void* k, const void* v, void* out, void* lse_p,
     int b, int sq, int hkv, int g, int dh, long long qsb, long long qst,
     long long qsh, long long ksb, long long kst, long long ksh, int q_offset,
-    int kv_len, int causal, float scale, int q_dtype, int kv_dtype,
-    void* stream) {
+    int kv_len, int causal, float scale, int variant, int q_dtype,
+    int kv_dtype, void* stream) {
   if (b == 0 || sq == 0 || hkv == 0 || g == 0) return (int)cudaGetLastError();
   if (dh <= 0 || dh > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -941,13 +965,22 @@ extern "C" int tardis_flash_prefill(
     return launcher(q, k, v, out, lse, b, sq, hkv, g, dh, qsb, qst, qsh, ksb,
                     kst, ksh, q_offset, kv_len, causal, scale, s);
   };
+  if (variant == 2) {
+    if (q_dtype != 0) return (int)cudaErrorInvalidValue;
+    return tardis_flash_prefill_tf32(q, k, v, out, lse, b, sq, hkv, g, dh,
+                                     qsb, qst, qsh, ksb, kst, ksh, q_offset,
+                                     kv_len, causal, scale, kv_dtype, s);
+  }
+  if (variant == 1) {
+    if (q_dtype != 1 || kv_dtype != 1) return (int)cudaErrorInvalidValue;
+    const int r = run(try_wgmma);
+    return r >= 0 ? r : (int)cudaErrorInvalidValue;
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) return run(launch<float, float>);
   if (q_dtype == 0 && kv_dtype == 1)
     return run(launch<float, __nv_bfloat16>);
-  if (q_dtype == 1 && kv_dtype == 1) {
-    const int r = run(try_wgmma);
-    if (r >= 0) return r;
+  if (q_dtype == 1 && kv_dtype == 1)
     return run(launch<__nv_bfloat16, __nv_bfloat16>);
-  }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,10 +6,12 @@ flash_backward.cu``).
 the model keeps them: any batch / position / head strides with Dh
 contiguous (k and v at equal strides), so a layer's slice of a cache is
 read in place.  ``q_offset`` and ``kv_len`` are host ints, as in the TPU
-kernel.  On CUDA tensors it launches K6 and counts the launch; on CPU
-tensors it runs the plain version.  The kernel takes (q, k/v) in
-float32/float32, bfloat16/bfloat16 or float32/bfloat16 and Dh <= 256 in
-multiples of 8 (:func:`takes`).
+kernel.  On CUDA tensors it launches K6 and counts the launch, and by
+variant in ``flash_prefill.variants`` (:func:`pick_variant`: "tf32x3" for
+an fp32 q up to Dh 128, "wgmma" for the bf16 pair where TMA maps the K/V
+view, "simt" for the rest); on CPU tensors it runs the plain version.  The
+kernel takes (q, k/v) in float32/float32, bfloat16/bfloat16 or
+float32/bfloat16 and Dh <= 256 in multiples of 8 (:func:`takes`).
 
 With ``return_lse=True`` it also returns each query row's log-sum-exp
 of its live scaled scores, fp32 (B, H, Sq), +inf on a row with no live
@@ -39,6 +41,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16))
 MAX_DH = 256
+# K6's variants by their code in tardis_flash_prefill (flash_prefill.cu)
+VARIANTS = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+MAX_TC_DH = 128          # the tensor-core variants' widest head dim
 
 
 def takes(q_dtype, kv_dtype, dh: int) -> bool:
@@ -75,6 +80,24 @@ def _check_cuda(name, q, k, v):
                          f"contiguous head dim")
 
 
+def pick_variant(q, k, v) -> str:
+    """K6's variant for a call it takes: "tf32x3" for an fp32 q (over fp32
+    or bf16 K/V) up to Dh 128, any view; "wgmma" for the bf16 pair where
+    Dh is a multiple of 16 up to 128 and TMA maps the K/V view (its
+    (batch, position, head) strides whole 16-byte units below 2^40 bytes,
+    both bases 16-byte aligned); "simt" otherwise.  Decided on the host
+    from dtypes, shapes and strides, so it holds for CPU tensors too."""
+    dh = q.shape[3]
+    if dh > MAX_TC_DH:
+        return "simt"
+    if q.dtype == torch.float32:
+        return "tf32x3"
+    tma = (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+           and all(st % 8 == 0 and 0 <= st * 2 < 1 << 40
+                   for st in k.stride()[:3]))
+    return "wgmma" if dh % 16 == 0 and tma else "simt"
+
+
 def flash_prefill(q, k, v, *, causal: bool = True, q_offset: int = 0,
                   kv_len=None, scale: float = None, return_lse: bool = False):
     """Returns (B, Sq, H, Dh) in q's dtype; with ``return_lse`` (out,
@@ -97,16 +120,20 @@ def flash_prefill(q, k, v, *, causal: bool = True, q_offset: int = 0,
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    variant = pick_variant(q, k, v)
     launch("tardis_flash_prefill", ptr(q), ptr(k), ptr(v), ptr(out),
            ptr(lse), b, sq, hkv, h // hkv, dh, *q.stride()[:3],
            *k.stride()[:3], int(q_offset), max(0, min(kv_len, skv)),
-           int(bool(causal)), float(scale), _DTYPES[q.dtype],
-           _DTYPES[k.dtype])
+           int(bool(causal)), float(scale), VARIANTS[variant],
+           _DTYPES[q.dtype], _DTYPES[k.dtype])
     flash_prefill.launches += 1
+    flash_prefill.variants[variant] = \
+        flash_prefill.variants.get(variant, 0) + 1
     return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0
+flash_prefill.variants = {}
 
 
 def variant_of(q_dtype) -> str:

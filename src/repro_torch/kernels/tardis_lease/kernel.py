@@ -171,5 +171,12 @@ def scatter_rows(pool, idx, rows, *, col_lo: int = 0):
     return pool
 
 
+def empty_probe() -> None:
+    """Launch the library's empty kernel on the current stream: the floor
+    that any kernel of one launch pays (timed beside K3's rows).  Counts
+    nothing: it is a probe, not a kernel of any path."""
+    launch("tardis_empty")
+
+
 for _fn in (lease_pass, write_advance, gather_rows, scatter_rows):
     _fn.launches = 0

@@ -6,7 +6,8 @@ non-causal masks and rows with no live key (+inf); K6's wrapper
 returning it with ``return_lse``; the differentiable
 ``ops.flash_attention`` saving it for its backward and still matching
 ``jax.grad``; and (``cuda`` lane) K6's LSE against the plain one, in
-both of K6's variants.  Tolerances: fp32 rtol = atol = 2e-4
+each of K6's variants (tf32x3 for an fp32 q over fp32 or bf16 K/V,
+wgmma for the bf16 pair).  Tolerances: fp32 rtol = atol = 2e-4
 (``tests/test_kernels.py``), the gradients 5e-4 as in
 ``tests/test_torch_flash_backward.py``."""
 import functools
@@ -173,9 +174,9 @@ def cuda():
                                                 "dh128"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_k6_lse_matches_plain(cuda, case, dtype):
-    """Both of K6's variants (fp32 SIMT; bf16 TMA + wgmma where Dh is a
-    multiple of 16 up to 128) write the LSE from their running max and
-    sum; rows with no live key get +inf.  The output is the one K6 gives
+    """Both of K6's variants at these dtypes (fp32: tf32x3; bf16: TMA +
+    wgmma where Dh is a multiple of 16 up to 128) write the LSE from
+    their running max and sum; rows with no live key get +inf.  The output is the one K6 gives
     with the LSE write off, bit for bit."""
     shape = {"train": (1, 256, 256, 32, 4, 64, True, 0, None),
              "dh80_g1": (2, 100, 100, 4, 4, 80, True, 0, None),
@@ -194,6 +195,45 @@ def test_cuda_k6_lse_matches_plain(cuda, case, dtype):
     assert torch.equal(out, FK.flash_prefill(q, k, v, **kw))
     want = flash_attention_lse_ref(q, k, **kw)
     dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert bool((lse[dead] > 0).all())
+    torch.testing.assert_close(lse[~dead], want[~dead], **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["dead_rows", "dead_rows_non_causal",
+                                  "kv_len", "train", "dh80_g1", "dh112_g8",
+                                  "dh128"])
+def test_cuda_k6_tf32x3_lse_matches_plain(cuda, case, kv_dtype):
+    """K6's tf32x3 variant (an fp32 q over fp32 or bf16 K/V) writes the LSE
+    from its running max and sum within 2e-4 of the plain LSE, +inf on a
+    row with no live key; its output is the same bits with the LSE write
+    off."""
+    shape = {"train": (1, 256, 256, 32, 4, 64, True, 0, None),
+             "dh80_g1": (2, 100, 100, 4, 4, 80, True, 0, None),
+             "dh112_g8": (1, 40, 96, 16, 2, 112, True, 50, 90),
+             "dh128": (1, 70, 90, 8, 2, 128, True, 20, 90)}.get(
+                 case, CASES.get(case))
+    b, sq, skv, h, hkv, dh, causal, q_offset, kv_len = shape
+    g = torch.Generator(device=cuda).manual_seed(sq + dh + 1)
+    q, k, v = (torch.randn(sh, generator=g, device=cuda) for sh in
+               ((b, sq, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
+    k, v = k.to(getattr(torch, kv_dtype)), v.to(getattr(torch, kv_dtype))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    n0 = FK.flash_prefill.variants.get("tf32x3", 0)
+    out, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
+    assert FK.flash_prefill.variants["tf32x3"] == n0 + 1
+    assert torch.equal(out, FK.flash_prefill(q, k, v, **kw))
+    want = flash_attention_lse_ref(q, k, **kw)
+    dead = torch.isinf(want)
+    # a row with no live key: 0 from the kernel (the plain version gives
+    # the mean of V there)
+    dead_rows = dead.transpose(1, 2)[..., None].expand_as(out)
+    assert bool((out[dead_rows] == 0).all())
+    torch.testing.assert_close(
+        out[~dead_rows], flash_attention_ref(q, k, v, **kw)[~dead_rows],
+        **FP32)
     assert torch.equal(torch.isinf(lse), dead)
     assert bool((lse[dead] > 0).all())
     torch.testing.assert_close(lse[~dead], want[~dead], **FP32)

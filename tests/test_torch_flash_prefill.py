@@ -3,8 +3,11 @@ version (what the port's ``ops.flash_attention`` runs on CPU tensors)
 against the Pallas kernel in interpret mode at the shapes it accepts
 (lengths dividing by 128, or below 128), against the JAX reference at
 ragged lengths with ``q_offset`` / ``kv_len`` (G in {1, 4}, Dh 64 and 80),
-the routing of ``models.attention.attend``, and a CUDA lane holding K6
-against its plain version (skipped where there is no card).  Tolerances:
+the routing of ``models.attention.attend``, K6's variant choice by dtype
+pair, Dh and view, a numpy model of the tf32x3 variant's arithmetic (three
+TF32 products of a hi / lo split) held to the JAX reference, and a CUDA
+lane holding K6 against its plain version (skipped where there is no
+card).  Tolerances:
 fp32 rtol = atol = 2e-4, bf16 3e-2 (``tests/test_kernels.py``).  Every
 case keeps ``kv_len`` above the first query's position: a row with no
 live key is 0 in the kernel and the mean of V in the plain version (the
@@ -15,7 +18,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as T
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.models import attention as TA
 
 try:
@@ -143,6 +147,127 @@ def test_flash_wrapper_checks_shapes():
     assert not FK.takes(torch.bfloat16, torch.float32, 64)
     assert not FK.takes(torch.float32, torch.float32, 260)
     assert not FK.takes(torch.float32, torch.float32, 36)
+
+
+# --- K6's variants -----------------------------------------------------------
+
+def _kv_view(dtype, d, *, misalign=False, stride_pad=0):
+    """A (1, 8, 2, d) K (or V) view on the CPU: a layer of a stacked cache
+    whose head stride is d + ``stride_pad`` elements, its base one element
+    past a 16-byte boundary where ``misalign``."""
+    base = torch.zeros((3, 1, 8, 2, d + stride_pad), dtype=dtype)
+    view = base[1, ..., int(misalign):int(misalign) + d]
+    assert view.stride(3) == 1
+    return view
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,view,want", [
+    (torch.float32, torch.float32, 64, {}, "tf32x3"),     # training's pair
+    (torch.float32, torch.float32, 8, {}, "tf32x3"),
+    (torch.float32, torch.float32, 80, {"misalign": True, "stride_pad": 8},
+     "tf32x3"),
+    (torch.float32, torch.bfloat16, 112, {}, "tf32x3"),
+    (torch.float32, torch.bfloat16, 128, {"stride_pad": 3}, "tf32x3"),
+    (torch.float32, torch.float32, 136, {}, "simt"),      # past Dh 128
+    (torch.float32, torch.float32, 256, {}, "simt"),
+    (torch.bfloat16, torch.bfloat16, 64, {}, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 80, {"stride_pad": 8}, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 72, {}, "simt"),     # not a k16 step
+    (torch.bfloat16, torch.bfloat16, 128, {"stride_pad": 3}, "simt"),
+    (torch.bfloat16, torch.bfloat16, 64, {"misalign": True, "stride_pad": 8},
+     "simt"),
+    (torch.bfloat16, torch.bfloat16, 256, {}, "simt"),
+])
+def test_variant_choice_by_dtype_pair_dh_and_view(q_dtype, kv_dtype, d, view,
+                                                 want):
+    """tf32x3 takes every fp32 q up to Dh 128 over any view; wgmma the bf16
+    pair where Dh is a multiple of 16 up to 128 and TMA maps the view
+    (strides in whole 16-byte units, 16-byte aligned bases); simt the
+    rest.  The choice is made on the host, so it holds on CPU tensors."""
+    q = torch.zeros((1, 4, 4, d), dtype=q_dtype)
+    k = _kv_view(kv_dtype, d, **view)
+    v = _kv_view(kv_dtype, d, **view)
+    assert FK.pick_variant(q, k, v) == want
+
+
+def _split_tf32(x):
+    """split_tf32 (tardis_hopper.cuh) in numpy: hi = x rounded to TF32 by
+    the kernel's integer rounding, lo = x - hi exactly, both fp32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+    return hi, (np.asarray(x, np.float32) - hi).astype(np.float32)
+
+
+def _tf32(x):
+    """What the mma reads of an fp32 register: its top 19 bits."""
+    return (np.asarray(x, np.float32).view(np.uint32)
+            & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _tf32x3(a, b, products=3):
+    """a @ b as the tf32x3 variant forms it: a_lo b_hi + a_hi b_lo + a_hi
+    b_hi of the split (the mma reading lo's top 19 bits, a_lo b_lo
+    dropped), products=2 for a b exact in TF32 (bf16 K/V), 1 for plain
+    TF32; each product exact in float64, the sum rounded to fp32."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    f = np.float64
+    out = ah.astype(f) @ bh.astype(f)
+    if products >= 2:
+        out += _tf32(al).astype(f) @ bh.astype(f)
+    if products >= 3:
+        out += ah.astype(f) @ _tf32(bl).astype(f)
+    return out.astype(np.float32)
+
+
+def _attention_model(q, k, v, *, causal, q_offset, kv_len, products):
+    """Masked softmax attention with both products through _tf32x3 (a row
+    with no live key gives 0, as K6 does)."""
+    b, sq, h, d = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    out = np.zeros_like(q)
+    qpos = q_offset + np.arange(sq)
+    live = np.arange(skv)[None, :] < kv_len
+    if causal:
+        live = live & (np.arange(skv)[None, :] <= qpos[:, None])
+    for bi in range(b):
+        for hi in range(h):
+            s = _tf32x3(q[bi, :, hi], k[bi, :, hi // g].T, products)
+            s = np.where(live, s * np.float32(d ** -0.5), -np.inf)
+            m = s.max(axis=1, keepdims=True)
+            p = np.where(live, np.exp(s - np.where(np.isfinite(m), m, 0)), 0.)
+            p = p.astype(np.float32)
+            acc = _tf32x3(p, v[bi, :, hi // g], products)
+            out[bi, :, hi] = acc / np.maximum(p.sum(axis=1, keepdims=True),
+                                              1e-30)
+    return out
+
+
+@pytest.mark.parametrize("kv_bf16", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,q_offset,kv_len,causal", [
+    (1, 40, 70, 8, 2, 64, 30, 65, True),     # suffix, kv_len < Skv, G 4
+    (2, 33, 33, 4, 4, 80, 0, 33, True),      # G 1, Dh 80
+    (1, 24, 50, 4, 1, 112, 0, 41, False),    # non-causal, Dh 112
+])
+def test_tf32x3_arithmetic_holds_the_fp32_tolerance(
+        kv_bf16, b, sq, skv, h, hk, d, q_offset, kv_len, causal):
+    """The tf32x3 variant's arithmetic, modelled in numpy, within fp32's
+    2e-4 of the JAX reference before any card runs it; with bf16 K/V
+    (exact in TF32) two products per step suffice.  Plain TF32 (one
+    product) is far from it: the split is what holds the tolerance."""
+    q, k, v = _inputs(b, sq, skv, h, hk, d, sq + d)
+    if kv_bf16:      # K/V values a bf16 pool holds, widened to fp32
+        k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (k, v))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    want = np.asarray(J_ref(*(jnp.asarray(a) for a in (q, k, v)), **kw),
+                      np.float32)
+    got = _attention_model(q, k, v, products=2 if kv_bf16 else 3, **kw)
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+    err = np.abs(got - want).max()
+    err_one = np.abs(_attention_model(q, k, v, products=1, **kw)
+                     - want).max()
+    assert err < err_one / 20, (err, err_one)
 
 
 # --- CUDA lane ----------------------------------------------------------------
@@ -277,3 +402,83 @@ def test_cuda_flash_prefill_bf16_dead_rows_are_zero(cuda):
     want = flash_attention_ref(q, k, v, q_offset=0, kv_len=20)
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=2 ** -9 * float(v.abs().max()) + 1e-5)
+
+
+F32_PAIRS = {"fp32": torch.float32, "fp32/bf16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(F32_PAIRS))
+@pytest.mark.parametrize("d", [64, 80, 112, 128])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len,causal", [
+    (200, 200, 0, None, True),       # ragged Sq * G, whole prompt
+    (16, 80, 64, 80, True),          # the paged suffix (16 queries at 64)
+    (77, 160, 60, 100, True),        # kv_len below q_offset + Sq
+    (50, 130, 0, 97, False),         # non-causal, kv_len < Skv
+])
+def test_cuda_flash_prefill_tf32x3_shapes(cuda, pair, d, g, sq, skv,
+                                          q_offset, kv_len, causal):
+    """K6's tf32x3 variant (an fp32 q over fp32 or bf16 K/V) at each Dh the
+    fp32 paths use, G 1 and 8, ragged lengths, the causal window cut by
+    kv_len, non-causal, over a layer view of a stacked cache: within
+    fp32's 2e-4 of the plain version, the variant counted."""
+    hk = 2
+    arrs = _inputs(2, sq, skv, hk * g, hk, d, sq + d + g)
+    q = torch.from_numpy(arrs[0]).to(cuda)
+    k, v = (torch.from_numpy(a).to(cuda, F32_PAIRS[pair]) for a in arrs[1:])
+    stacked = torch.stack([v, k, v])
+    before = dict(FK.flash_prefill.variants)
+    got = FK.flash_prefill(q, stacked[1], stacked[2], causal=causal,
+                           q_offset=q_offset, kv_len=kv_len)
+    assert FK.flash_prefill.variants.get("tf32x3", 0) == \
+        before.get("tf32x3", 0) + 1
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(F32_PAIRS))
+def test_cuda_flash_prefill_tf32x3_dead_rows_and_lse(cuda, pair):
+    """Rows with no live key give 0 and an LSE of +inf on the tf32x3
+    variant; the output is the same bits with and without the LSE write,
+    and a second call replays the first bit for bit."""
+    arrs = _inputs(2, 40, 64, 16, 2, 64, 11)
+    q = torch.from_numpy(arrs[0]).to(cuda)
+    k, v = (torch.from_numpy(a).to(cuda, F32_PAIRS[pair]) for a in arrs[1:])
+    dead, lse = FK.flash_prefill(q, k, v, causal=False, kv_len=0,
+                                 return_lse=True)
+    assert torch.equal(dead, torch.zeros_like(dead))
+    assert bool(torch.isinf(lse).all()) and bool((lse > 0).all())
+    # kv_len 20: rows 0-19 live under the causal mask, 20-39 see 0-19
+    kw = dict(q_offset=0, kv_len=20)
+    out, lse = FK.flash_prefill(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, FK.flash_prefill(q, k, v, **kw))
+    assert torch.equal(out, FK.flash_prefill(q, k, v, **kw))
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw),
+                               **TOL["float32"])
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                               **TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_prefill_counts_variants(cuda):
+    """One call of each pair lands in ``flash_prefill.variants`` under its
+    variant; Dh 256 still takes the SIMT kernel."""
+    FK.flash_prefill.variants.clear()
+    for qd, kd, d in ((torch.float32, torch.float32, 64),
+                      (torch.float32, torch.bfloat16, 64),
+                      (torch.bfloat16, torch.bfloat16, 64),
+                      (torch.float32, torch.float32, 256),
+                      (torch.bfloat16, torch.bfloat16, 256)):
+        arrs = _inputs(1, 16, 16, 4, 2, d, d)
+        q = torch.from_numpy(arrs[0]).to(cuda, qd)
+        k, v = (torch.from_numpy(a).to(cuda, kd) for a in arrs[1:])
+        got = FK.flash_prefill(q, k, v)
+        torch.testing.assert_close(
+            got.float(), flash_attention_ref(q, k, v).float(),
+            **TOL["float32" if qd == torch.float32 else "bfloat16"])
+    assert FK.flash_prefill.variants == {"tf32x3": 2, "wgmma": 1,
+                                         "simt": 2}

@@ -311,3 +311,43 @@ def test_cuda_row_copy_matches_plain(cuda, dtype, row, col_lo, width):
     R.scatter_rows_ref(b, idx, rows, col_lo)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("col_lo,width", [(0, 11264), (2560, 8704)])
+def test_cuda_row_copy_many_entries_and_duplicates(cuda, dtype, col_lo,
+                                                   width):
+    """300 entries (the scatter's duplicate scan spans several strides of
+    a CTA's threads), one id listed at the first, a middle and the last
+    position and another twice mid-list: bit for bit the plain versions,
+    the last listed row winning."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_rows, row = 4096, 11264
+    pool = torch.randn((n_rows, row), generator=g, device=cuda).to(dtype)
+    idx = torch.randperm(n_rows, generator=g, device=cuda)[:300]
+    idx = idx.to(torch.int32)
+    idx[0] = idx[150] = idx[299] = 7
+    idx[40] = idx[41] = 9
+    assert torch.equal(K.gather_rows(pool, idx, col_lo=col_lo, width=width),
+                       R.gather_rows_ref(pool, idx, col_lo, width))
+    rows = torch.randn((300, width), generator=g, device=cuda).to(dtype)
+    a, b = pool.clone(), pool.clone()
+    n0 = K.scatter_rows.launches
+    K.scatter_rows(a, idx, rows, col_lo=col_lo)
+    assert K.scatter_rows.launches == n0 + 1
+    R.scatter_rows_ref(b, idx, rows, col_lo)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int8), b.view(torch.int8))
+    assert torch.equal(a[7, col_lo:col_lo + width], rows[299])
+
+
+@pytest.mark.cuda
+def test_cuda_empty_probe_counts_nothing(cuda):
+    """The library's empty kernel (the one-launch floor timed beside K3)
+    launches and counts no kernel of any path."""
+    before = {f: f.launches for f in (K.lease_pass, K.write_advance,
+                                      K.gather_rows, K.scatter_rows)}
+    K.empty_probe()
+    torch.cuda.synchronize()
+    assert {f: f.launches for f in before} == before
