@@ -166,6 +166,21 @@ which seeds each check fails for each injection (exit 1 if the new check
 misses one the retired check caught).  Phase 1 also counts the HGMMA
 instructions (K6's wgmma) in the library's SASS, and the HMMA
 instructions (mma.sync) of K4's and K7's tensor-core variants.
+The encdec family (whisper-large-v3, arXiv:2212.04356): phase 2 holds
+K6 and K10 at its attention shapes (20 / 20 heads, Dh 64, non-causal, 1500
+encoder positions: the encoder's self-attention, the prefill's and a
+decode step's cross-attention in bf16, training's encoder and
+cross-attention in fp32 with the LSE, K10 at both) beside SDPA; phase 3
+serves it at full width and depth (random bf16 weights from seed 0: 4
+clips of 1500 frames, a 4-token prompt, 64 greedy tokens each, 448-slot
+caches; K6 96 launches a prefill and 32 a decode step, all "wgmma") and
+trains it in fp32 weights (3 steps of 2 clips and 448 tokens; K6 / K10 96
+and K8 / K11 161 launches a step); phase 4 holds it at full width and 2 +
+2 layers, card against CPU (fp32 loss, gradients and an AdamW step; the
+bf16 path teacher-forced).  The protocol model checker (phase 3) closes
+the SC, no-pw-opt and TSO lanes of the 2-core / 1-block config with its
+bridge replaying every distinct engine read (K1) and write (K2) on the
+card, with the numpy lane's counts.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -2303,7 +2318,6 @@ def phase3_train_path(smi):
     from repro_torch.optim import adamw
     from repro_torch.runtime import TrainConfig, build_step, train
     from repro_torch.tree import leaves, value_and_grad
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     gc.collect()
     torch.cuda.empty_cache()
@@ -2385,23 +2399,10 @@ def phase3_train_path(smi):
         t0 = time.perf_counter()
         one_step()
         wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    dev_rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
-    kinds = {}
-    for e in dev_rows:
-        kind = ("K10" if "flash_bwd" in e.key else
-                "K6" if "flash_prefill" in e.key else
-                "K11" if "rmsnorm_bwd" in e.key else
-                "K8" if "rmsnorm_rows" in e.key else
-                "matmul" if any(k in e.key.lower() for k in
-                                ("gemm", "xmma", "nvjet", "cutlass"))
-                else "other")
-        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy, kinds, dev_rows = _profile_kinds(prof)
     log(f"profile: training step on {smi}: wall {wall:.3f} s under the "
         f"profiler, device busy {busy:.3f} s, idle share "
-        f"{1 - busy / wall:.3f}; device ms by kind "
-        + json.dumps({k: round(v, 3) for k, v in kinds.items()}))
+        f"{1 - busy / wall:.3f}; device ms by kind " + json.dumps(kinds))
     for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
@@ -3164,6 +3165,553 @@ def phase4_mutants(smi, seeds, card="cuda", cfgs=None):
     return missed
 
 
+# ---------------------------------------------------------------------------
+# whisper-large-v3 (the encdec family) and the protocol model checker
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-large-v3"
+WHISPER_HEADS, WHISPER_DH = 20, 64     # 20 query heads over 20 KV heads
+# serving: 4 clips of 1500 frames (30 s after the stride-2 conv stem), a
+# 4-token decoder prompt, 64 new tokens each (the prefill's and 63 decode
+# steps'), caches of 448 slots (whisper's text context), bf16 weights
+WS_CLIPS, WS_FRAMES, WS_PROMPT, WS_NEW, WS_CACHE = 4, 1500, 4, 64, 448
+# training: 2 clips of 1500 frames, 448 target tokens, 3 steps, fp32
+WT_CLIPS, WT_FRAMES, WT_TOKENS, WT_STEPS = 2, 1500, 448, 3
+WHISPER_KERNELS = ("flash_prefill", "rmsnorm")
+WHISPER_TRAIN_KERNELS = ("flash_prefill", "flash_backward", "rmsnorm",
+                         "rmsnorm_backward")
+# K6 at whisper's attention (G = 1, Dh 64, non-causal): (name, path, dtype,
+# B, Sq, Skv) -- the encoder's self-attention, the prefill's and a decode
+# step's cross-attention (bf16 serving), and training's encoder and
+# cross-attention (fp32, the LSE written); K10 at training's two shapes
+WHISPER_K6_ROWS = (
+    ("flash_prefill.whisper_encoder", "whisper", "bf16", WS_CLIPS,
+     WS_FRAMES, WS_FRAMES),
+    ("flash_prefill.whisper_cross_prefill", "whisper", "bf16", WS_CLIPS,
+     WS_PROMPT, WS_FRAMES),
+    ("flash_prefill.whisper_cross_decode", "whisper", "bf16", WS_CLIPS, 1,
+     WS_FRAMES),
+    ("flash_prefill.whisper_train_encoder", "whisper_train", "fp32",
+     WT_CLIPS, WT_FRAMES, WT_FRAMES),
+    ("flash_prefill.whisper_train_cross", "whisper_train", "fp32", WT_CLIPS,
+     WT_TOKENS, WT_FRAMES))
+WHISPER_K10_ROWS = (
+    ("flash_backward.whisper_encoder", WT_CLIPS, WT_FRAMES, WT_FRAMES),
+    ("flash_backward.whisper_cross", WT_CLIPS, WT_TOKENS, WT_FRAMES))
+
+
+def phase2_whisper_attention(rows):
+    """K6 and K10 against their plain versions at whisper's attention
+    shapes (20 / 20 heads, Dh 64, non-causal; 1500 keys, not a multiple of
+    the kernels' 64-key tile): K6 in bf16 on "wgmma" (serving) and fp32
+    on "tf32x3" with its LSE (training), K10 in fp32 and bf16 (two calls
+    bit-identical); each row's time beside SDPA's for the same call
+    (forward, or eager backward) and its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_ref, flash_attention_lse_ref,
+        flash_attention_ref)
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    launch_ms = rows[0]["launch_ms"]
+    h, dh = WHISPER_HEADS, WHISPER_DH
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    replaces = "src/repro/kernels/flash_attention/kernel.py:64"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def add(row):
+        row.update(route="cuda", launch_ms=launch_ms)
+        rows.append(row)
+        _log_row(row)
+
+    def plain(q, k, v):
+        return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                              v[i:i + 1], causal=False)
+                          for i in range(q.shape[0])])
+
+    for name, path, tag, b, sq, skv in WHISPER_K6_ROWS:
+        fp32 = tag == "fp32"
+        dt = torch.float32 if fp32 else torch.bfloat16
+        q, k, v = (randn(b, n, h, dh).to(dt) for n in (sq, skv, skv))
+        got, variant = variant_of(FK.flash_prefill, lambda: FK.flash_prefill(
+            q, k, v, causal=False, return_lse=fp32))
+        assert variant == ("tf32x3" if fp32 else "wgmma"), \
+            f"K6 {name} took the {variant} variant"
+        want = plain(q, k, v)
+        if fp32:
+            got, lse = got
+            torch.testing.assert_close(lse, flash_attention_lse_ref(
+                q, k, causal=False), **FP32)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(FP32 if fp32 else BF16))
+        if not fp32:       # P rounded to bf16 for P.V, as in phase 2's K6
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=2 ** -7,
+                atol=2 ** -9 * float(v.abs().max()) + 1e-5)
+        err = max_err(got.float(), want.float())
+        del got, want
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nops = 4 * b * h * dh * sq * skv
+        el = 4 if fp32 else 2
+        nbytes = el * (2 * b * sq * h * dh + 2 * b * skv * h * dh) \
+            + (4 * b * h * sq if fp32 else 0)
+        big = sq * skv > 1 << 20
+        t = timings(lambda: FK.flash_prefill(q, k, v, causal=False,
+                                             return_lse=fp32),
+                    lambda: plain(q, k, v),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                    iters=5 if big else 20, plain_iters=2 if big else 20)
+        add(dict(
+            name=name, wrapper="flash_prefill", path=path, variant=variant,
+            source=src + ("flash_prefill_tf32.cu" if fp32 else
+                          "flash_prefill.cu"), replaces=replaces,
+            max_abs_err=err,
+            shape=f"B={b} Sq={sq} Skv={skv} H={h} Hkv={h} dh={dh} "
+            f"non-causal {tag}" + (", LSE written; bound: three TF32 "
+                                   "products" if fp32 else ""), **t,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes, 3 * nops, TF32_TC_FLOPS) if fp32 else
+                bound(nbytes, nops, BF16_TC_FLOPS)))))
+        log(f"  {name}: K6 {t['ms'] * 1e3:.2f} us, SDPA "
+            f"{t['library_ms'] * 1e3:.2f} us ({t['ms'] / t['library_ms']:.2f}"
+            f"x of it)")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    for name, b, sq, skv in WHISPER_K10_ROWS:
+        q32, k32, v32, do32 = (randn(b, n, h, dh)
+                               for n in (sq, skv, skv, sq))
+        errs = {}
+        for tag, dt, tol in (("fp32", torch.float32, FP32),
+                             ("bf16", torch.bfloat16, BF16)):
+            q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
+            o, lse = FK.flash_prefill(q, k, v, causal=False, return_lse=True)
+            got, variant = variant_of(FK.flash_backward, lambda: (
+                FK.flash_backward(q, k, v, o, do, lse=lse, causal=False)))
+            assert variant == ("tf32x3" if tag == "fp32" else "bf16")
+            again = FK.flash_backward(q, k, v, o, do, lse=lse, causal=False)
+            want = flash_attention_backward_ref(q, k, v, o, do, causal=False)
+            for a, a2, w in zip(got, again, want):
+                assert torch.equal(a, a2), f"K10 {name} {tag}: two calls"
+                torch.testing.assert_close(a.float(), w.float(), **tol)
+            errs[tag] = max(max_err(a.float(), w.float())
+                            for a, w in zip(got, want))
+            del got, again, want
+        q, k, v, do = q32, k32, v32, do32
+        o, lse = FK.flash_prefill(q, k, v, causal=False, return_lse=True)
+        parts = kernel_times(lambda: FK.flash_backward(
+            q, k, v, o, do, lse=lse, causal=False))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        nops = 10 * b * h * dh * sq * skv
+        nbytes = 4 * (4 * b * sq * h * dh + 4 * b * skv * h * dh
+                      + b * h * sq)
+        t = timings(lambda: FK.flash_backward(q, k, v, o, do, lse=lse,
+                                              causal=False),
+                    lambda: flash_attention_backward_ref(q, k, v, o, do,
+                                                         causal=False),
+                    iters=5, plain_iters=2)
+        t["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 5, 3)
+        add(dict(
+            name=name, wrapper="flash_backward", path="whisper_train",
+            variant="tf32x3", source=src + "flash_backward.cu",
+            replaces=replaces, max_abs_err=errs["fp32"],
+            shape=f"B={b} Sq={sq} Skv={skv} H={h} Hkv={h} dh={dh} "
+            f"non-causal fp32 (bf16 max |err| {errs['bf16']:.3g}); kernels "
+            f"(us, profiler): " + json.dumps(
+                {kk: round(x, 2) for kk, x in parts.items()})
+            + "; library: SDPA's eager backward; bound: three TF32 "
+            "products", **t,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 3 * nops, TF32_TC_FLOPS)))))
+        log(f"  {name}: K10 {t['ms'] * 1e3:.2f} us, SDPA's eager backward "
+            f"{t['library_ms'] * 1e3:.2f} us ({t['ms'] / t['library_ms']:.2f}"
+            f"x of it)")
+        del q32, k32, v32, do32, q, k, v, do, o, lse, qt, kt, vt, out
+        torch.cuda.empty_cache()
+
+
+def _whisper_batch(cfg, b, s_enc, s_dec, dev, seed=SEED, step=0):
+    """Frames (the stub frontend's output: normal, from the seed with
+    numpy) and decoder tokens / labels (``synthetic_batch``'s stream)."""
+    import numpy as np
+    from repro_torch.data import batch_to, synthetic_batch
+    rng = np.random.default_rng([seed, step])
+    batch = synthetic_batch(seed, step, b, s_dec, cfg.vocab)
+    batch["frames"] = rng.standard_normal((b, s_enc, cfg.d_model),
+                                          dtype=np.float32)
+    return batch_to(batch, dev)
+
+
+def _whisper_generate(cfg, params, batch, n_new, cache_len, windows=None):
+    """Prefill, then greedy ``decode_step``s to ``n_new`` tokens a clip
+    (the first from the prefill's logits); the tokens stay on the device
+    until the end.  With ``windows`` (a dict), the launch counts of the
+    prefill and of the first decode step are taken there, each set to 0
+    just before and read just after.  Returns (tokens (B, n_new), the
+    last logits, seconds)."""
+    import torch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import decode_step, prefill
+    dev = batch["tokens"].device
+    s = batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if windows is not None:
+        reset_launch_counts()
+    cache, logits = prefill(cfg, params, batch, cache_len)
+    if windows is not None:
+        windows["prefill"] = (launch_counts(), variant_counts())
+    toks = [logits[:, -1].argmax(-1).to(torch.int32)]
+    for i in range(n_new - 1):
+        if windows is not None and i == 0:
+            reset_launch_counts()
+        cache, logits = decode_step(
+            cfg, params, cache, toks[-1][:, None],
+            torch.tensor(s + i, dtype=torch.int32, device=dev))
+        if windows is not None and i == 0:
+            windows["step"] = (launch_counts(), variant_counts())
+        toks.append(logits[:, -1].argmax(-1).to(torch.int32))
+    out = torch.stack(toks, 1)
+    torch.cuda.synchronize()
+    return out, logits, time.perf_counter() - t0
+
+
+def _profile_kinds(prof):
+    """(device busy s, device ms by kind) of a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
+    kinds = {}
+    for e in dev_rows:
+        kind = ("K10" if "flash_bwd" in e.key else
+                "K6" if "flash_prefill" in e.key else
+                "K11" if "rmsnorm_bwd" in e.key else
+                "K8" if "rmsnorm_rows" in e.key else
+                "matmul" if any(k in e.key.lower() for k in
+                                ("gemm", "xmma", "nvjet", "cutlass"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return busy, {k: round(v, 3) for k, v in kinds.items()}, dev_rows
+
+
+def _whisper_norms(cfg, prefill):
+    """K8's launches by variant in a prefill (2 a encoder layer, 3 a
+    decoder layer, the final norm; the first of each stack plain, the
+    rest with the residual add fused) or a decode step."""
+    n = 3 * cfg.n_layers + 1 + (2 * cfg.n_enc_layers if prefill else 0)
+    plain = 2 if prefill else 1
+    return {"plain": plain, "add": n - plain}
+
+
+def phase3_whisper_serve(smi, card="cuda"):
+    """Serving whisper-large-v3 at full width and depth on the card (random
+    bf16 weights from seed 0): 4 clips of 1500 frames through ``prefill``
+    and greedy ``decode_step``s to 64 tokens each.  The launch counts set
+    to 0 before the first run and read after (K6 and K8); the per-prefill
+    and per-step counts held (K6: 96 a prefill -- 32 encoder, 32 decoder
+    and 32 cross-attentions -- and 32 a step, the cross-attention, all on
+    "wgmma"; the decoder's self-attention over its 448-slot cache takes the
+    plain dense path, as in JAX); tokens/s of the first and a warm run;
+    a warm run under ``torch.profiler``.  Returns (counts, variants)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params, param_leaves
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(WHISPER)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(
+        SEED), torch.bfloat16)
+    n_par = sum(t.numel() for t in param_leaves(params))
+    batch = _whisper_batch(cfg, WS_CLIPS, WS_FRAMES, WS_PROMPT, card)
+    del batch["labels"]
+    n_tok = WS_CLIPS * WS_NEW
+    reset_launch_counts()
+    toks, logits, first = _whisper_generate(cfg, params, batch, WS_NEW,
+                                            WS_CACHE)
+    counts, variants = launch_counts(), variant_counts()
+    assert toks.shape == (WS_CLIPS, WS_NEW)
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    assert bool(torch.isfinite(logits).all())
+    _t, _l, warm = _whisper_generate(cfg, params, batch, WS_NEW, WS_CACHE)
+    windows = {}
+    _t2, _l2, _s = _whisper_generate(cfg, params, batch, 2, WS_CACHE,
+                                     windows)
+    assert torch.equal(_t2, toks[:, :2]) and torch.equal(_t, toks)
+    log(f"whisper serving on {smi}: {WHISPER} full width and depth "
+        f"({cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, vocab "
+        f"{cfg.vocab}, {n_par / 1e9:.3f} B bf16 params), {WS_CLIPS} clips "
+        f"of {WS_FRAMES} frames, a {WS_PROMPT}-token prompt, {WS_NEW} new "
+        f"tokens each, cache {WS_CACHE}: first run {first:.3f} s = "
+        f"{n_tok / first:.1f} tokens/s, warm {warm:.3f} s = "
+        f"{n_tok / warm:.1f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"launches on the whisper serving run: "
+        f"{ {k: counts[k] for k in WHISPER_KERNELS} }, by variant "
+        f"{ {k: variants[k] for k in WHISPER_KERNELS} }")
+    steps = WS_NEW - 1
+    want_k6 = 3 * cfg.n_layers
+    assert variants["flash_prefill"] == {
+        "wgmma": want_k6 + steps * cfg.n_layers}, variants["flash_prefill"]
+    for key, want_k6_w, pre in (("prefill", want_k6, True),
+                                ("step", cfg.n_layers, False)):
+        c, v = windows[key]
+        log(f"  a {key}: K6 {v['flash_prefill']}, K8 {v['rmsnorm']}")
+        assert v["flash_prefill"] == {"wgmma": want_k6_w}, (key, v)
+        assert v["rmsnorm"] == _whisper_norms(cfg, pre), (key, v)
+        assert c["flash_prefill"] == want_k6_w
+    for k in WHISPER_KERNELS:
+        assert counts[k] > 0, f"{k} never launched on the whisper path"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _t, _l, wall = _whisper_generate(cfg, params, batch, WS_NEW,
+                                         WS_CACHE)
+    busy, kinds, dev_rows = _profile_kinds(prof)
+    log(f"profile: whisper serving on {smi}: wall {wall:.3f} s under the "
+        f"profiler, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}; device ms by kind " + json.dumps(kinds))
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    del params, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+def phase3_whisper_train(smi, card="cuda"):
+    """Training whisper-large-v3 at full width and depth on the card in fp32
+    weights: ``runtime.build_step`` (loss, gradients, AdamW), 3 steps of 2
+    clips of 1500 frames and 448 target tokens.  The launch counts set to
+    0 before the steps and read after: a step runs K6 and K10 96 times
+    each (all on "tf32x3") and K8 and K11 161 times each (2 plain + 159
+    add); ms a warm step, training tokens/s (decoder tokens), the peak
+    memory, every parameter finite; one warm step under the profiler.
+    Returns (counts, variants)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(WHISPER)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(
+        SEED), torch.float32)
+    n_par = sum(t.numel() for t in param_leaves(params))
+    step_fn = build_step(cfg, TrainConfig(steps=WT_STEPS, seed=SEED))
+    opt_state = adamw.init(params)
+    batches = [_whisper_batch(cfg, WT_CLIPS, WT_FRAMES, WT_TOKENS, card,
+                              step=s) for s in range(WT_STEPS + 1)]
+    losses, step_s = [], []
+    reset_launch_counts()
+    for s in range(WT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _r, m = step_fn(params, opt_state, None,
+                                           batches[s])
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    counts, variants = launch_counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert all(map(math.isfinite, losses)), losses
+    assert all(bool(torch.isfinite(t).all()) for t in param_leaves(params))
+    warm = step_s[1:]
+    toks = WT_CLIPS * WT_TOKENS
+    log(f"whisper training on {smi}: {WHISPER} full width and depth "
+        f"({n_par / 1e9:.3f} B fp32 params), {WT_STEPS} steps of "
+        f"{WT_CLIPS} clips x {WT_FRAMES} frames and {WT_TOKENS} tokens: "
+        f"losses {losses}; ms a step {[round(t * 1e3, 3) for t in step_s]} "
+        f"(first cold); warm {sum(warm) / len(warm) * 1e3:.3f} ms a step = "
+        f"{toks * len(warm) / sum(warm):.1f} decoder tokens/s; "
+        f"max_memory_allocated {peak:.2f} GB")
+    log(f"launches on the whisper training path: "
+        f"{ {k: counts[k] for k in WHISPER_TRAIN_KERNELS} }, by variant "
+        f"{ {k: variants[k] for k in WHISPER_TRAIN_KERNELS} }")
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    norms = _whisper_norms(cfg, True)
+    for k in ("flash_prefill", "flash_backward"):
+        assert variants[k] == {"tf32x3": WT_STEPS * n_attn}, (k, variants[k])
+    for k in ("rmsnorm", "rmsnorm_backward"):
+        assert variants[k] == {v: WT_STEPS * n for v, n in norms.items()}, \
+            (k, variants[k])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _r, m = step_fn(params, opt_state, None,
+                                           batches[WT_STEPS])
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+    busy, kinds, dev_rows = _profile_kinds(prof)
+    log(f"profile: whisper training step on {smi}: loss {loss:.4f}, wall "
+        f"{wall:.3f} s under the profiler, device busy {busy:.3f} s, idle "
+        f"share {1 - busy / wall:.3f}; device ms by kind "
+        + json.dumps(kinds))
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    del params, opt_state, batches, step_fn, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+# phase 4's whisper lanes: full width, 2 + 2 layers; fp32: 1 clip of 1500
+# frames and 64 tokens, the loss, every gradient and the parameters after
+# one AdamW step held as the tinyllama training lane holds them; bf16: 2
+# clips, a 4-token prompt, the prefill and 4 teacher-forced decode steps
+# under ``norm_check``
+WP4_LAYERS, WP4_TOKENS, WP4_STEPS = 2, 64, 4
+
+
+def phase4_whisper_card_vs_cpu(smi, card="cuda"):
+    """whisper at full width and 2 + 2 layers, the card against the CPU
+    (the plain versions, by ``device="cpu"``): fp32 loss, gradients and one
+    AdamW step; the bf16 serving path teacher-forced against an fp32
+    anchor."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_params, loss_fn, prefill
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step
+    from repro_torch.tree import leaves, tree_map, value_and_grad
+    cfg = dataclasses.replace(get_arch(WHISPER), n_layers=WP4_LAYERS,
+                              n_enc_layers=WP4_LAYERS)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 30),
+                         torch.float32)
+    batch = _whisper_batch(cfg, 1, WT_FRAMES, WP4_TOKENS, "cpu", SEED + 30)
+    res = {}
+    for dev in (card, "cpu"):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = value_and_grad(lambda pp, bb: loss_fn(cfg, pp, bb), p,
+                                     b)
+        p, _st, _r, m = build_step(cfg, TrainConfig(steps=4))(
+            p, adamw.init(p), None, b)
+        res[dev] = (float(loss), [gr.cpu() for gr in leaves(grads)],
+                    [t.cpu() for t in leaves(p)], float(m["lr"]))
+        log(f"phase 4 whisper fp32 lane on {dev}: loss {float(loss):.7f}, "
+            f"gradients and one AdamW step in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p, b, grads
+    torch.cuda.empty_cache()
+    (lc, gc_, pc, lr), (lh, gh, ph, _) = res[card], res["cpu"]
+    assert math.isclose(lc, lh, rel_tol=TRAIN_P4_LOSS["rtol"]), (lc, lh)
+    g_worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(gc_, gh))
+    assert g_worst <= TRAIN_P4_GRAD_REL, g_worst
+    p_worst = 0.0
+    for a, b in zip(pc, ph):
+        d = (a - b).abs()
+        assert bool((d <= 2 * lr + 1e-6 * b.abs()).all()), float(d.max())
+        p_worst = max(p_worst, float(d.max()))
+    log(f"phase 4 whisper fp32 lane (full width, {cfg.n_enc_layers} + "
+        f"{cfg.n_layers} layers, 1 x {WT_FRAMES} frames, {WP4_TOKENS} "
+        f"tokens) on {smi}: loss card {lc:.7f} cpu {lh:.7f} (rel "
+        f"{abs(lc - lh) / abs(lh):.2e}); worst gradient leaf error / its "
+        f"max {g_worst:.2e} (limit {TRAIN_P4_GRAD_REL}); params after one "
+        f"AdamW step: max |diff| {p_worst:.3e} (limit {2 * lr:.3e})")
+    del res, params, batch
+
+    # bf16, teacher-forced against the fp32 anchor
+    pb = _phase4_params(cfg, SEED + 31)
+    batch = _whisper_batch(cfg, 2, WT_FRAMES, WS_PROMPT, "cpu", SEED + 31)
+    del batch["labels"]
+
+    def run(params, dev, fed=None):
+        """The prefill and WP4_STEPS decode steps, fed ``fed`` (else the
+        run's own greedy tokens); returns ((R, V) logits a step, the
+        tokens it fed)."""
+        b = {k: v.to(dev) for k, v in batch.items()}
+        cache, logits = prefill(cfg, params, b, WS_CACHE)
+        out, toks = [logits[:, -1].float().cpu().numpy()], []
+        for i in range(WP4_STEPS):
+            tok = (out[-1].argmax(-1) if fed is None else fed[i])
+            toks.append(tok)
+            cache, logits = decode_step(
+                cfg, params, cache,
+                torch.from_numpy(tok.astype(np.int32)[:, None]).to(dev),
+                torch.tensor(WS_PROMPT + i, dtype=torch.int32, device=dev))
+            out.append(logits[:, -1].float().cpu().numpy())
+        return out, toks
+
+    with torch.no_grad():
+        anchor, fed = run(_cast(pb, torch.float32), "cpu")
+        cpu, _ = run(pb, "cpu", fed)
+        got, _ = run(_cast(pb, device=card), card, fed)
+    ok, steps = norm_check(got, cpu, anchor)
+    worst = max(s["e_card"] / s["limit"] for s in steps)
+    log(f"phase 4 whisper bf16 lane on {smi}: teacher-forced (prefill + "
+        f"{WP4_STEPS} steps, 2 clips): e_card / e_cpu per step "
+        + ", ".join(f"{s['e_card']:.4g}/{s['e_cpu']:.4g}" for s in steps)
+        + f"; worst e_card / limit {worst:.3f}: "
+        f"{'holds' if ok else 'FAILS'}")
+    assert ok, f"whisper bf16 lane: {steps}"
+    torch.cuda.empty_cache()
+
+
+# the model checker's lanes on the card: the 2-core / 1-block config
+MC_LANES = (("sc", {}), ("no-pw-opt", dict(pw_opt=False)),
+            ("tso", dict(consistency="tso")))
+
+
+def phase3_model_check(smi, card="cuda"):
+    """The protocol model checker with its bridge replaying every distinct
+    manager-table operation on the card (``Bridge(backend="device")``:
+    each read one K1 launch, each write one K2 launch) and, in the same
+    process, on the numpy mirror: each lane closes with zero violations
+    and the two give the same states, transitions, rule counts and bridge
+    counts.  Returns the K1 / K2 launches of the card's replays."""
+    from repro_torch.analysis import Bridge, Config, TardisModel, explore
+    total = {"lease_pass": 0, "write_advance": 0}
+    for lane, kw in MC_LANES:
+        cfg = Config(n_cores=2, n_blocks=1, lease=2, ts_bits=2, **kw)
+        out = {}
+        for backend in ("numpy", "device"):
+            bridge = Bridge(cfg.lease, backend=backend,
+                            device=card if backend == "device" else None)
+            t0 = time.perf_counter()
+            r = explore(TardisModel(cfg), bridge=bridge)
+            out[backend] = (r, bridge.launches, time.perf_counter() - t0)
+            assert r.closed and not r.violations, \
+                f"model check {lane} ({backend}): {r.violations[:3]}"
+        (rn, _ln, wn), (rd, ld, wd) = out["numpy"], out["device"]
+        key = ("n_states", "n_transitions", "max_depth", "rule_counts",
+               "bridge_counts")
+        assert [getattr(rd, k) for k in key] == [getattr(rn, k) for k in key]
+        assert ld == {"lease_pass": rd.bridge_counts["engine.read"],
+                      "write_advance": rd.bridge_counts["engine.write"]}, ld
+        for k in total:
+            total[k] += ld[k]
+        log(f"model check {lane} on {smi}: {rd.n_states} states, "
+            f"{rd.n_transitions} transitions, depth {rd.max_depth}, closed, "
+            f"0 violations, counts equal to the numpy lane's; bridge "
+            f"{rd.bridge_counts}; K1 {ld['lease_pass']} / K2 "
+            f"{ld['write_advance']} launches; wall {wd:.2f} s (numpy "
+            f"{wn:.2f} s)")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3197,10 +3745,13 @@ def main() -> int:
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
     phase2_backward_kernels(rows)
+    phase2_whisper_attention(rows)
     t_l2, t_smem = phase2_coherence_sim(rows)
     stamp("phase 2")
     sim_counts = phase3_simulator_path(smi, rows, t_l2, t_smem)
     stamp("phase 3 (simulator path)")
+    phase3_model_check(smi)
+    stamp("phase 3 (model checker on the card)")
     counts, variants, _tps = phase3_main_path(smi)
     stamp("phase 3 (paged path)")
     phase3_multi_host(smi)
@@ -3211,6 +3762,10 @@ def main() -> int:
     stamp("phase 3 (kimi-k2 paged path)")
     train_counts = phase3_train_path(smi)
     stamp("phase 3 (training path)")
+    whisper_counts = phase3_whisper_serve(smi)
+    stamp("phase 3 (whisper serving)")
+    whisper_train_counts = phase3_whisper_train(smi)
+    stamp("phase 3 (whisper training)")
     phase4_card_vs_cpu(smi)
     stamp("phase 4 (paged path)")
     phase4_fleet_card_vs_cpu(smi)
@@ -3221,6 +3776,8 @@ def main() -> int:
     stamp("phase 4 (wave paths)")
     phase4_train_card_vs_cpu(smi)
     stamp("phase 4 (training path)")
+    phase4_whisper_card_vs_cpu(smi)
+    stamp("phase 4 (whisper lanes)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
@@ -3231,7 +3788,8 @@ def main() -> int:
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
                    "simulator": sim_counts, "train": train_counts,
-                   **wave_counts}
+                   "whisper": whisper_counts,
+                   "whisper_train": whisper_train_counts, **wave_counts}
     for r in rows:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])

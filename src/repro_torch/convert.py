@@ -9,7 +9,8 @@ layers) too.  A moe layer's leaves come across as they are: ``router``
 ``residual`` MLP (each a {w_gate, w_up, w_down} dict).  The hybrid
 family's ``groups`` are stacked on two axes
 (n_app, per) and become a list of lists; its weight-shared ``shared``
-block is one dict in both packages.  Leaves arrive as numpy arrays (bf16 ones as ml_dtypes
+block is one dict in both packages.  The encdec family's ``enc_layers``
+and ``dec_layers`` unstack as ``layers`` does.  Leaves arrive as numpy arrays (bf16 ones as ml_dtypes
 ``bfloat16``, which torch cannot wrap directly, so they travel as int16
 bits).  Element counts and bytes are unchanged, so the serving cluster's
 ``param_bytes`` and flops-per-token charges match the JAX cluster's.
@@ -40,13 +41,14 @@ def _tree(x, device):
 
 
 def params_from_jax(tree: Mapping[str, Any], device="cpu") -> dict:
-    """Map a dense, moe, ssm or hybrid JAX parameter tree (numpy leaves)
-    to the port's parameter dict: ``layers`` and ``dense_layers``
+    """Map a JAX parameter tree (numpy leaves) to the port's parameter
+    dict: ``layers``, ``dense_layers``, ``enc_layers`` and ``dec_layers``
     unstacked into per-layer lists, ``groups`` into a list (per
     application) of per-layer lists."""
-    stacked = ("layers", "dense_layers", "groups")
-    out = {k: _tree(v, device) for k, v in tree.items() if k not in stacked}
-    for key in ("layers", "dense_layers"):
+    lists = ("layers", "dense_layers", "enc_layers", "dec_layers")
+    out = {k: _tree(v, device) for k, v in tree.items()
+           if k not in lists + ("groups",)}
+    for key in lists:
         if key in tree:
             out[key] = _unstack(_tree(tree[key], device))
     if "groups" in tree:

@@ -9,7 +9,7 @@ sum to within one quantization step.  ``torch.round`` rounds half to even,
 as ``jnp.round`` does.  ``microbatch_grads`` accumulates gradients over
 ``n_micro`` equal slices of the batch in fp32, in slice order (the JAX
 package's ``lax.scan``).  The device collectives (``psum`` and the rest,
-``collectives.py:111-141``) are not ported yet (``ROADMAP.md`` item 6).
+``collectives.py:111-141``) are not ported yet (``ROADMAP.md`` §1 item 1).
 
 The numpy mirrors are the port of ``np_psum`` / ``np_all_gather`` /
 ``np_reduce_scatter`` / ``np_all_to_all`` (``collectives.py:144-176``):

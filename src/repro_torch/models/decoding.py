@@ -8,7 +8,13 @@ Caches keep the JAX layout, stacked on a leading layer axis:
     path lays side by side in one pool token row (``pool_layout``);
   * ssm: ``{"state"}`` (L, B, H, P, N) fp32 and ``{"conv"}`` (L, B, K-1, C);
   * hybrid: those two plus ``{"ak", "av"}`` (n_app, B, T, Hkv, Dh) for the
-    shared attention block's per-application caches.
+    shared attention block's per-application caches;
+  * encdec: ``{"k", "v"}`` for the decoder's self-attention and ``{"ck",
+    "cv"}`` (L, B, S_enc, Hkv, Dh), each decoder layer's cross-attention
+    K/V of the encoder output, written once by the prefill.  As in the JAX
+    package, its prefill writes the cache in bf16 whatever ``dtype`` says
+    (``_encdec_prefill`` takes the dtype; ``prefill`` does not pass it).
+    The paged paths stay decoder-only.
 ``decode_step`` writes the new token's K/V row and SSM state **in place**
 (the JAX version rebuilt the stacked caches every step: a whole-cache copy
 per token in eager PyTorch); only the small conv buffer is rebuilt, so its
@@ -29,9 +35,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.tardis_lease.kernel import LANES, scatter_rows
 from .ssm import ssm_block
-from .transformer import (ATTN_FAMILIES, PORTED_FAMILIES, Params, _embed,
-                          _mlp_after, attn_decode, attn_decode_paged,
-                          attn_prefill, attn_prefill_cached, logits_fn,
+from .transformer import (ATTN_FAMILIES, PORTED_FAMILIES, Params,
+                          _cross_after, _embed, _mlp_after, attn_decode,
+                          attn_decode_paged, attn_prefill,
+                          attn_prefill_cached, enc_kv_of, encode, logits_fn,
                           residual_norm, settle)
 
 Cache = Dict[str, Any]
@@ -98,9 +105,9 @@ def _ssm_cache(cfg, n, b, dtype, device):
 
 
 def init_cache(cfg: ArchConfig, b: int, t: int, dtype=torch.bfloat16,
-               device="cpu") -> Cache:
-    """Zeroed decode caches of the dense/vlm, moe, ssm and hybrid
-    families."""
+               device="cpu", enc_len: int = 0) -> Cache:
+    """Zeroed decode caches of the ported families (``enc_len``: the
+    encdec cross-attention caches' length)."""
     fam = cfg.family
     if fam in ATTN_FAMILIES:
         out = {}
@@ -116,6 +123,10 @@ def init_cache(cfg: ArchConfig, b: int, t: int, dtype=torch.bfloat16,
         s, c = _ssm_cache(cfg, cfg.n_layers, b, dtype, device)
         ak, av = _attn_cache(cfg, n_app, b, t, dtype, device)
         return {"state": s, "conv": c, "ak": ak, "av": av}
+    if fam == "encdec":
+        k, v = _attn_cache(cfg, cfg.n_layers, b, t, dtype, device)
+        ck, cv = _attn_cache(cfg, cfg.n_layers, b, enc_len, dtype, device)
+        return {"k": k, "v": v, "ck": ck, "cv": cv}
     raise NotImplementedError(f"family {fam!r} is not ported yet")
 
 
@@ -162,6 +173,14 @@ def decode_step(cfg: ArchConfig, p: Params, cache: Cache, tokens,
         convs: List = []
         x, r = _ssm_layers_decode(cfg, p["layers"], x, r, cache, 0, convs)
         new_cache["conv"] = torch.stack(convs)
+    elif fam == "encdec":
+        for li, layer in enumerate(p["dec_layers"]):
+            x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+            y, _kc, _vc = attn_decode(layer["attn"], cfg, xn, cache["k"][li],
+                                      cache["v"][li], cur_idx)
+            x, y = _cross_after(cfg, layer, x, y,
+                                (cache["ck"][li], cache["cv"][li]))
+            x, r = _mlp_after(cfg, layer, x, y)
     else:                                           # hybrid
         convs = []
         shared = p["shared"]
@@ -248,6 +267,8 @@ def prefill(cfg: ArchConfig, p: Params, batch, cache_len: int,
     fam = cfg.family
     if fam not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {fam!r} is not ported yet")
+    if fam == "encdec":
+        return _encdec_prefill(cfg, p, batch, cache_len)
     x = _embed(cfg, p, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -285,6 +306,33 @@ def prefill(cfg: ArchConfig, p: Params, batch, cache_len: int,
                               cache["av"][a])
     x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
     return cache, _last_logits(cfg, p, x, last_idx)
+
+
+def _encdec_prefill(cfg, p, batch, cache_len, dtype=torch.bfloat16):
+    """Whisper's prefill: the encoder over ``batch["frames"]``, then the
+    decoder prompt; each decoder layer's cross-attention reads its (K, V)
+    of the encoder output as computed and the cache keeps them in
+    ``dtype``, as the self-attention's K/V (the JAX package's casts).
+    Returns (cache, the last position's logits)."""
+    enc = encode(cfg, p, batch["frames"])
+    x = _embed(cfg, p, batch)
+    b, sd, _ = x.shape
+    dpos = torch.arange(sd, dtype=torch.int32, device=x.device).expand(b, sd)
+    cache = init_cache(cfg, b, cache_len, dtype, x.device,
+                       enc_len=enc.shape[1])
+    r = None
+    for li, layer in enumerate(p["dec_layers"]):
+        x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+        y, (kc, vc) = attn_prefill(layer["attn"], cfg, xn, dpos, cache_len)
+        cache["k"][li].copy_(kc)
+        cache["v"][li].copy_(vc)
+        ck, cv = enc_kv_of(layer["cross"], cfg, enc)
+        x, y = _cross_after(cfg, layer, x, y, (ck, cv))
+        cache["ck"][li].copy_(ck)
+        cache["cv"][li].copy_(cv)
+        x, r = _mlp_after(cfg, layer, x, y)
+    x = residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
+    return cache, logits_fn(cfg, p, x[:, -1:])
 
 
 def prefill_suffix(cfg: ArchConfig, p: Params, batch, cache: Cache,

@@ -1,5 +1,5 @@
-"""Model assembly for the dense/vlm, moe, ssm and hybrid families (the port
-of ``repro.models.transformer``).
+"""Model assembly for the dense/vlm, moe, ssm, hybrid and encdec families
+(the port of ``repro.models.transformer``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,),
 ``lm_head`` (D, V) unless tied, and per family
@@ -12,7 +12,12 @@ Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,),
   * ssm: ``layers`` -- a list of ``{"ssm": {...}}`` Mamba2 blocks;
   * hybrid (zamba2): ``groups`` -- ``n_layers // attn_every`` lists of
     ``attn_every`` Mamba2 blocks each -- and ``shared``, ONE attention +
-    MLP block (weight-shared) applied after every group.
+    MLP block (weight-shared) applied after every group;
+  * encdec (whisper): ``enc_layers`` -- laid out as the dense family's,
+    their self-attention non-causal -- and ``dec_layers`` (``attn``,
+    ``cross`` {wq, wk, wv, wo, norm}, ``mlp``, ``mlp_norm``).  The encoder
+    reads ``batch["frames"]`` (B, S_enc, d_model), the stub frontend's
+    output (the conv stem is not modelled, as in the JAX package).
 The JAX package stacks layers on leading axes for ``lax.scan``; PyTorch
 runs eagerly, so the port loops over lists
 (:func:`repro_torch.convert.params_from_jax` unstacks).  The JAX package's
@@ -39,7 +44,7 @@ DENSE_FAMILIES = ("dense", "vlm")
 # families whose layers are all attention + MLP (or MoE) blocks
 ATTN_FAMILIES = DENSE_FAMILIES + ("moe",)
 # families whose params, forward, prefill and dense-cache decode are ported
-PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
+PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +188,26 @@ def attn_decode_paged(p, cfg, xn, pool_rows, page_rows, lengths, k_off: int,
     return out.reshape(b, 1, -1) @ p["wo"], kd, vd
 
 
+def cross_apply(p, cfg, xn, enc_kv):
+    """Cross-attention of ``xn`` (the stream after ``p["norm"]``) over the
+    encoder's precomputed (K, V): no RoPE, non-causal, through ``attend``
+    (K6 on the card)."""
+    b, s, _ = xn.shape
+    q = (xn @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim())
+    k, v = enc_kv
+    out = attend(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def enc_kv_of(p, cfg, enc_out):
+    """The cross-attention's (K, V) of the encoder output (B, S_enc, D)."""
+    b, se, _ = enc_out.shape
+    dh = cfg.head_dim()
+    k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, dh)
+    v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, dh)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -201,14 +226,22 @@ def _moe_layer_init(generator, cfg, dtype):
                                    device=generator.device)}
 
 
+def _encdec_dec_layer_init(generator, cfg, dtype):
+    return {"attn": attn_init(generator, cfg, dtype),
+            "cross": attn_init(generator, cfg, dtype),
+            "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype),
+            "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                   device=generator.device)}
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.bfloat16) -> Params:
     """Random weights from ``generator``, on the generator's device (the
     same shapes and scales as the JAX package's ``init_params``)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense, moe, ssm and hybrid families; "
-            f"{cfg.family!r} is not ported yet")
+            f"the port runs the {', '.join(PORTED_FAMILIES)} families; "
+            f"{cfg.family!r} is not one of them")
     p: Params = {
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model), dtype,
                             scale=0.02),
@@ -231,11 +264,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     elif cfg.family == "ssm":
         p["layers"] = [{"ssm": ssm_init(generator, cfg, dtype)}
                        for _ in range(cfg.n_layers)]
-    else:                                           # hybrid
+    elif cfg.family == "hybrid":
         n_app, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
         p["groups"] = [[{"ssm": ssm_init(generator, cfg, dtype)}
                         for _ in range(per)] for _ in range(n_app)]
         p["shared"] = _mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
+    else:                                           # encdec
+        p["enc_layers"] = [_mlp_layer_init(generator, cfg, dtype, cfg.d_ff)
+                           for _ in range(cfg.n_enc_layers)]
+        p["dec_layers"] = [_encdec_dec_layer_init(generator, cfg, dtype)
+                           for _ in range(cfg.n_layers)]
     return p
 
 
@@ -259,6 +297,8 @@ def forward(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     """Full-sequence forward -> final hidden states (B, S, D)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "encdec":
+        return _encdec_forward(cfg, p, batch)
     x = _embed(cfg, p, batch)
     b, s, _ = x.shape
     positions = batch.get("positions")
@@ -307,12 +347,13 @@ def attn_layers(p):
     return list(p.get("dense_layers", ())) + list(p["layers"])
 
 
-def _dense_layer_fwd(cfg, layer, x, r, positions):
-    """One dense or moe layer over the residual stream x + r; returns the
-    stream and the MLP's (or MoE's) output, pending."""
+def _dense_layer_fwd(cfg, layer, x, r, positions, causal=True):
+    """One dense or moe layer (or an encoder layer, ``causal=False``) over
+    the residual stream x + r; returns the stream and the MLP's (or
+    MoE's) output, pending."""
     x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
     return _mlp_after(cfg, layer, x, attn_apply(layer["attn"], cfg, xn,
-                                                positions))
+                                                positions, causal=causal))
 
 
 def _mlp_after(cfg, layer, x, y):
@@ -326,11 +367,51 @@ def _mlp_after(cfg, layer, x, y):
     return h, swiglu(layer["mlp"], xn)
 
 
+def _cross_after(cfg, layer, x, y, enc_kv):
+    """A decoder layer's cross-attention after its self-attention: h = x +
+    y (y the self-attention's output) and the cross norm in one call,
+    then cross-attention over ``enc_kv``.  Returns (h, its output
+    pending)."""
+    h, xn = add_rmsnorm(x, y, layer["cross"]["norm"], cfg.norm_eps)
+    return h, cross_apply(layer["cross"], cfg, xn, enc_kv)
+
+
+def encode(cfg, p, frames) -> torch.Tensor:
+    """The encoder stack over ``frames`` (B, S_enc, D), the stub frontend's
+    output cast to the weights' dtype: non-causal self-attention with RoPE
+    at positions 0..S_enc-1, no final norm (the JAX package's)."""
+    x = frames.to(p["embed"].dtype)
+    b, se, _ = x.shape
+    epos = torch.arange(se, dtype=torch.int32, device=x.device).expand(b, se)
+    r = None
+    for layer in p["enc_layers"]:
+        x, r = _dense_layer_fwd(cfg, layer, x, r, epos, causal=False)
+    return settle(x, r)
+
+
+def _encdec_forward(cfg, p, batch):
+    """Whisper's forward: the encoder over ``batch["frames"]``, then the
+    decoder over ``batch["tokens"]`` (causal self-attention, then
+    cross-attention over each layer's own K/V of the encoder output)."""
+    enc = encode(cfg, p, batch["frames"])
+    x = _embed(cfg, p, batch)
+    b, sd, _ = x.shape
+    dpos = torch.arange(sd, dtype=torch.int32, device=x.device).expand(b, sd)
+    r = None
+    for layer in p["dec_layers"]:
+        x, xn = residual_norm(x, r, layer["attn"]["norm"], cfg.norm_eps)
+        y = attn_apply(layer["attn"], cfg, xn, dpos)
+        x, y = _cross_after(cfg, layer, x, y,
+                            enc_kv_of(layer["cross"], cfg, enc))
+        x, r = _mlp_after(cfg, layer, x, y)
+    return residual_norm(x, r, p["final_norm"], cfg.norm_eps)[1]
+
+
 def loss_fn(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` (labels of -1 are
     masked).  Differentiable on the CPU (plain code) and, for the dense,
-    vlm and moe families, on the card: K6 and K8 (plain, add) carry their
-    backward kernels K10 and K11.  The ssm and hybrid families raise on
+    vlm, moe and encdec families, on the card: K6 and K8 (plain, add) carry
+    their backward kernels K10 and K11.  The ssm and hybrid families raise on
     the card under autograd (K7 and K8's gate variant are forward-only).
     The JAX package rematerializes each layer (``jax.checkpoint``) to save
     memory; the port keeps the layers' activations (the chunked loss is

@@ -1,5 +1,14 @@
-"""The port's own copy of the reference's kernel-oracle lint (rule 2 of
-``scripts/lint_protocol.py``): every public op in
+"""The port's own copies of the reference's protocol lints
+(``scripts/lint_protocol.py``).
+
+Rule 1, table ownership: outside ``src/repro_torch/core/`` no assignment
+(plain, augmented, annotated, or through a subscript or a tuple) writes
+through an attribute named ``wts`` / ``rts`` / ``_wts`` / ``_rts``, so the
+``(wts, rts)`` tables change only through the ``LeaseEngine`` / protocol
+API (or the ``set_tables`` seam) and the invariants the model checker
+proves keep their meaning.
+
+Rule 2, kernel oracles: every public op in
 ``src/repro_torch/kernels/*/ops.py`` has a ``<name>_ref`` mirror in the
 sibling ``ref.py`` whose parameters are a same-order prefix of the op's,
 with any op-only extras defaulted, so a differential test can call both
@@ -29,8 +38,77 @@ try:
 except ImportError:      # the card's machine has no JAX
     jnp = None
 
-KERNELS = Path(repro_torch.__file__).resolve().parent / "kernels"
+PKG = Path(repro_torch.__file__).resolve().parent
+KERNELS = PKG / "kernels"
 FP32 = dict(rtol=2e-4, atol=2e-4)
+TS_NAMES = {"wts", "rts", "_wts", "_rts"}
+
+
+def _attr_target(node):
+    """The Attribute node a store target writes through, if any."""
+    if isinstance(node, ast.Attribute):
+        return node
+    if isinstance(node, (ast.Subscript, ast.Starred)):
+        return _attr_target(node.value)
+    return None
+
+
+def table_mutation_findings(path: Path, tree) -> list:
+    """Rule 1 on one module: a line per store through a timestamp-table
+    attribute."""
+    findings = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign):
+            targets = []
+            for t in node.targets:
+                targets += t.elts if isinstance(t, ast.Tuple) else [t]
+        elif isinstance(node, (ast.AugAssign, ast.AnnAssign)):
+            targets = [node.target]
+        else:
+            continue
+        for t in targets:
+            attr = _attr_target(t)
+            if attr is not None and attr.attr in TS_NAMES:
+                findings.append(
+                    f"{path}:{node.lineno}: mutates timestamp table "
+                    f"attribute '.{attr.attr}' outside core/ (use the "
+                    f"LeaseEngine/protocol API)")
+    return findings
+
+
+def test_tables_are_mutated_only_in_core():
+    """Rule 1 over every module of the port outside ``core/``."""
+    walked, findings = 0, []
+    for path in sorted(PKG.rglob("*.py")):
+        if path.relative_to(PKG).parts[0] == "core":
+            continue
+        walked += 1
+        findings += table_mutation_findings(path.relative_to(PKG),
+                                            ast.parse(path.read_text()))
+    assert walked > 30
+    assert findings == []
+
+
+@pytest.mark.parametrize("src", ["engine._rts[idx] = 0\n",
+                                 "self.wts, other = a, b\n",
+                                 "eng.rts += 1\n",
+                                 "d.shards[0]._wts: object = None\n"])
+def test_rule_1_finds_a_planted_table_write(src):
+    found = table_mutation_findings(Path("runtime/x.py"), ast.parse(src))
+    assert len(found) == 1 and "timestamp table" in found[0], found
+
+
+def test_rule_1_finds_the_reference_mutations_and_passes_reads():
+    """The reference's planted lines (``tests/test_model_check.py``'s lint
+    case): three findings; reads and other attributes none."""
+    bad = ast.parse("engine._rts[idx] = 0\n"
+                    "self.wts, other = a, b\n"
+                    "eng.rts += 1\n")
+    assert len(table_mutation_findings(Path("runtime/x.py"), bad)) == 3
+    good = ast.parse("local_copy = engine.rts\n"
+                     "engine.other[idx] = 0\n"
+                     "wts = 3\n")
+    assert table_mutation_findings(Path("runtime/x.py"), good) == []
 
 
 def _params(fn):

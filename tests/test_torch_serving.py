@@ -23,6 +23,7 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.core import CoherencePolicy as TPolicy
 from repro_torch.models import init_params as init_params_t
+from repro_torch.models import pool_layout
 from repro_torch.runtime import MultiHostServingCluster
 from repro_torch.runtime import Request as TRequest
 from repro_torch.runtime import ServingCluster as TCluster
@@ -144,11 +145,12 @@ def test_entry_points_default_to_the_card_and_refuse_unported_paths():
     # the dense-cache wave (DecodeReplica.serve) is ported since; an empty
     # wave comes back as it went in
     assert tc.replicas[0].serve([]) == []
-    # still unported: the encdec family (the moe family serves paged and
-    # multi-host serving runs since their slices)
+    # the encdec family runs its dense-cache paths since its slice; its
+    # paged paths stay decoder-only, as in the JAX package
     whisper = t_reduced(t_get_arch("whisper-large-v3"))
+    assert "dec_layers" in init_params_t(whisper, torch.Generator())
     with pytest.raises(NotImplementedError):
-        init_params_t(whisper, torch.Generator())
+        pool_layout(whisper)
 
 
 def test_multi_host_fleet_defaults_to_the_card():
