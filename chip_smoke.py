@@ -5,12 +5,14 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from
-     ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a;
+     ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a; a
+     library kernel launched before the first torch.profiler session,
+     and whether the profiler records the library's launches;
   2. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (tinyllama-1.1b full width: token row 11264,
      chunk 16, B = 8, P = 32, 4608 blocks): K1-K3 bit for bit (K1 and K2
-     one device kernel a call, by torch.profiler; K2 also with no block
-     and every block masked), K4 -- also at kimi-k2's attention (Hkv 8,
+     one kernel and no other work a call, by a CUDA graph's nodes; K2
+     also with no block and every block masked), K4 -- also at kimi-k2's attention (Hkv 8,
      G 8, Dh 112, its moe stack's segment at column 1792 of the token
      row) and arctic's (Dh 128, G 7) -- within
      the bf16 (3e-2, and one bf16 ulp: its tensor-core variant) and fp32
@@ -121,10 +123,22 @@ step, all on their tf32x3 variants, K8 and K11 45: 1 plain + 44 add),
 every parameter's gradient
 finite and non-zero, ms a step, tokens/s, the peak memory and one warm
 step profiled; phase 4 holds the card against the CPU at full width and 2
-layers (loss, every gradient leaf, the parameters after 2 AdamW steps),
-a crash and restart on the card against an uninterrupted run, and the
-ssm / hybrid losses raising ``NotImplementedError`` under autograd on the
-card (K7 and K8's gate variant are forward-only).
+layers (loss, every gradient leaf, the parameters after 2 AdamW steps)
+and a crash and restart on the card against an uninterrupted run.
+The ssm and hybrid families train on the card too: phase 2 holds K12 (the
+SSD chunk backward) and K11's gate variant against their plain versions
+at zamba2's (2 x 1024 tokens, 80 heads, P = N = 64, Q 256, B / C shared)
+and mamba2's (8 x 1024, 24 heads, N 128) training shapes in fp32 (2e-4,
+two calls bit-identical), with K7's fp32 forward at zamba2's; phase 3
+runs ``runtime.train`` on full-width, full-depth zamba2-2.7b (4 steps of
+2 x 1024 tokens) and mamba2-130m (3 steps of 8 x 1024) with the launches
+per step held (zamba2: K7 / K12 54, K8 / K11 73 -- 54 gate + 19 add --
+and K6 / K10 9), every zamba2 gradient finite and non-zero and a warm
+step profiled; phase 4 holds zamba2 at full width and 6 layers card
+against CPU (the tinyllama lane's tolerances) and runs the train CLI for
+both families on the card; then, on a one-rank NCCL group, the device
+collectives against their numpy mirrors and the 6-layer training state
+through ``save_sharded`` / ``restore_sharded`` bit for bit, with GB/s.
 Phase 2 also holds K5 (the dense-cache split-KV decode) against its plain
 version at both wave shapes (tinyllama: B = 4, Hkv = 4, G = 8, Dh = 64;
 zamba2: B = 4, Hkv = 32, G = 1, Dh = 80; T = 4096, kv_len = 3000), with
@@ -272,6 +286,78 @@ def device_kernels(fn):
             and not e.key.startswith(("Memcpy", "Memset"))}
 
 
+def graph_nodes(fn):
+    """{name: count} of the work one call of ``fn`` enqueues, read through
+    the driver API (``cuGraphGetNodes``) from a CUDA graph captured of the
+    call: kernels by their mangled names, fills and copies as "memset" /
+    "memcpy", any other node by its type.  Unlike ``torch.profiler`` it
+    sees the kernel library's launches whatever came first."""
+    import ctypes
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(r, what):
+        assert r == 0, f"{what} returned CUresult {r}"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw, n = vp(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        key = {1: "memcpy", 2: "memset"}.get(kind.value,
+                                             f"node type {kind.value}")
+        if kind.value == 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+            params = (ctypes.c_byte * 128)()
+            ok(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
+               "cuGraphKernelNodeGetParams_v2")
+            func, kern = (vp.from_buffer(params, at).value for at in (0, 56))
+            name = ctypes.c_char_p()
+            if func:
+                ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)),
+                   "cuFuncGetName")
+            else:
+                ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)),
+                   "cuKernelGetName")
+            key = name.value.decode()
+        out[key] = out.get(key, 0) + 1
+    del graph
+    return out
+
+
+def profiler_sees_library():
+    """Whether ``torch.profiler`` records the kernel library's launches.
+    On the H100 it records them only where the library launched a kernel
+    before the process's first profiler session (the library links the
+    CUDA runtime statically), so K2 runs once first; where the profiler
+    still shows none, the kernel splits and idle shares it gives below
+    leave the library's kernels out, and the log says so."""
+    import torch
+    from repro_torch.kernels.tardis_lease import kernel as K
+    z = torch.zeros(4608, dtype=torch.int32, device="cuda")
+    K.write_advance(z, z, z, 1)
+    torch.cuda.synchronize()
+    seen = any("write_advance" in k for k in device_kernels(
+        lambda: K.write_advance(z, z, z, 1)))
+    log("torch.profiler records the kernel library's launches" if seen else
+        "torch.profiler records none of the kernel library's launches: "
+        "the kernel splits, idle shares and device ms by kind it gives "
+        "below leave them out")
+    return seen
+
+
 def timings(kernel, plain, library=None, iters=20, plain_iters=20):
     """ms: the kernel's device time (graph replay); call_ms: one eager
     wrapper call, host overhead included; plain_ms: the plain version,
@@ -322,6 +408,7 @@ def phase1_card_and_build():
     _build.library()
     log(f"built {lib.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    profiler_sees_library()
     # K6's bf16 variant must issue wgmma (HGMMA in the library's SASS),
     # K4's and K7's tensor-core variants mma.sync (HMMA)
     n_hgmma = sum(sass_counts(lib, "HGMMA").values())
@@ -387,22 +474,21 @@ def phase2_kernels(rows):
         for x, y in zip(got, want):
             assert torch.equal(x, y), "K1 lease_pass differs from plain"
             err = max(err, max_err(x, y))
-    # --- K2 write_advance, its kernels a call counted before any CUDA graph
-    # is captured: after one the profiler showed none for it ------------
+    # --- K2 write_advance ----------------------------------------------
     mask = masks[0]
     for m in (mask, torch.zeros_like(mask), torch.ones_like(mask)):
         got = K.write_advance(wts, rts, m, 500)
         want = R.write_advance_ref(wts, rts, m, 500)
         for x, y in zip(got, want):
             assert torch.equal(x, y), "K2 write_advance differs from plain"
-    per_call = device_kernels(lambda: K.write_advance(wts, rts, mask, 500))
-    log(f"K2 write_advance: device kernels in one call: {per_call}")
+    per_call = graph_nodes(lambda: K.write_advance(wts, rts, mask, 500))
+    log(f"K2 write_advance: work in one call (graph nodes): {per_call}")
     assert list(per_call.values()) == [1] and "write_advance" in next(
         iter(per_call)), f"K2 runs {per_call} a call, not one kernel"
     # one launch per call: no fill of the outputs before the kernel
-    per_call = device_kernels(lambda: K.lease_pass(wts, rts, req, masks, pts,
-                                                   64))
-    log(f"K1 lease_pass: device kernels in one call: {per_call}")
+    per_call = graph_nodes(lambda: K.lease_pass(wts, rts, req, masks, pts,
+                                                64))
+    log(f"K1 lease_pass: work in one call (graph nodes): {per_call}")
     assert list(per_call.values()) == [1] and "lease_pass" in next(
         iter(per_call)), f"K1 runs {per_call} a call, not one kernel"
     nbytes = (3 * n + grp * n + grp) * 4 + (n + grp * n + 1 + grp) * 4
@@ -2438,8 +2524,7 @@ CRASH_LOSS = dict(rtol=1e-3, atol=0)
 def phase4_train_card_vs_cpu(smi):
     """The training path on the card against the CPU (the plain versions,
     by ``device="cpu"``); a crash and restart on the card against an
-    uninterrupted run; the ssm and hybrid losses raising under autograd on
-    the card."""
+    uninterrupted run."""
     import tempfile
 
     import numpy as np
@@ -2536,22 +2621,6 @@ def phase4_train_card_vs_cpu(smi):
         f" the uninterrupted step 10 bit for bit")
     del runs, crashed, clean, cparams
 
-    # ssm and hybrid: forward-only kernels on the card refuse autograd
-    for arch in ("zamba2-2.7b", "mamba2-130m"):
-        rcfg = reduced(get_arch(arch))
-        rp = init_params(rcfg, torch.Generator(device="cuda").manual_seed(
-            SEED), torch.float32)
-        rb = _train_batch(rcfg, 0, 2, 64, "cuda")
-        try:
-            value_and_grad(lambda pp, bb: loss_fn(rcfg, pp, bb), rp, rb)
-        except NotImplementedError as e:
-            log(f"{arch} ({rcfg.family}) loss_fn under autograd on the card "
-                f"raises NotImplementedError: {e}")
-        else:
-            raise AssertionError(f"{arch}: loss_fn(...).backward() ran on "
-                                 f"the card through forward-only kernels")
-        with torch.no_grad():
-            assert math.isfinite(float(loss_fn(rcfg, rp, rb)))
     torch.cuda.empty_cache()
 
 
@@ -3394,6 +3463,8 @@ def _profile_kinds(prof):
     kinds = {}
     for e in dev_rows:
         kind = ("K10" if "flash_bwd" in e.key else
+                "K12" if "ssd_bwd" in e.key else
+                "K7" if "ssd_chunk" in e.key else
                 "K6" if "flash_prefill" in e.key else
                 "K11" if "rmsnorm_bwd" in e.key else
                 "K8" if "rmsnorm_rows" in e.key else
@@ -3712,6 +3783,474 @@ def phase3_model_check(smi, card="cuda"):
     return total
 
 
+
+# ---------------------------------------------------------------------------
+# The ssm and hybrid families' training on the card (K12, K11's gate)
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b trains at full width and depth, fp32 weights: 2 x 1024 tokens
+# a step (peak 55.86 GB allocated at that size: nothing cut), 4 steps (the
+# first cold); mamba2-130m at its published size, 8 x 1024 tokens, 3 steps
+SSM_TRAIN = {"zamba2-2.7b": dict(steps=4, batch=2, seq=1024),
+             "mamba2-130m": dict(steps=3, batch=8, seq=1024)}
+SSM_TRAIN_KERNELS = ("ssd_chunk", "ssd_chunk_backward", "rmsnorm",
+                     "rmsnorm_backward", "flash_prefill", "flash_backward")
+# K12 and K11's gate at each family's training shape: (name, path, b, s,
+# heads, P, N) and (name, path, rows, D, in_proj width)
+K12_ROWS = (("ssd_chunk_backward.zamba2", "zamba2_train", 2, 1024, 80, 64,
+             64),
+            ("ssd_chunk_backward.mamba2", "mamba2_train", 8, 1024, 24, 64,
+             128))
+K11_GATE_ROWS = (("rmsnorm_backward.zamba2_gated", "zamba2_train", 2 * 1024,
+                  5120, 10448),
+                 ("rmsnorm_backward.mamba2_gated", "mamba2_train", 8 * 1024,
+                  1536, 3352))
+
+
+def _ssd_train_inputs(g, b, s, h, p, n, chunk=256):
+    """K7's / K12's operands as the training step lays them out: x, B and
+    C fp32 column views of one conv output (B, C shared by the heads), dt
+    softplus-ed, cum its within-chunk cumulative decay; dy, dS."""
+    import torch
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    nc = -(-s // chunk)
+    conv = randn(b, s, h * p + 2 * n)
+    xs = conv[..., :h * p].reshape(b, s, h, p)
+    bs, cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = F.softplus(randn(b, s, h))
+    A = -torch.exp(0.5 * randn(h))
+    cum = torch.cumsum((F.pad(dt, (0, 0, 0, nc * chunk - s)) * A).reshape(
+        b, nc, chunk, h), dim=2)
+    return xs, dt, cum, bs, cs, randn(b, nc, chunk, h, p), \
+        randn(b, nc, h, p, n), chunk
+
+
+def phase2_ssm_backward_kernels(rows):
+    """K12 (the SSD chunk backward) and K11's gate variant against their
+    plain versions on the card at zamba2's and mamba2's training shapes,
+    fp32 within 2e-4 of each output's largest value, two calls
+    bit-identical; each row's device time (graph replay), eager call,
+    plain version, bound and launches (on its family's training path).
+    K7's fp32 SIMT forward gets a row at zamba2's training shape."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_backward_ref
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_backward_ref,
+                                                  ssd_chunk_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    launch_ms = rows[0]["launch_ms"]
+
+    def add(row):
+        row.update(route="cuda", launch_ms=launch_ms)
+        rows.append(row)
+        _log_row(row)
+
+    def held(name, got, again, want):
+        for i, (a, a2, w) in enumerate(zip(got, again, want)):
+            assert torch.equal(a, a2), f"{name} output {i}: two calls differ"
+            scale = max(float(w.float().abs().max()), 1.0)
+            err = max_err(a.float(), w.float())
+            assert err <= FP32["atol"] * scale, (name, i, err, scale)
+        return max(max_err(a.float(), w.float()) for a, w in zip(got, want))
+
+    for name, path, b, s, h, p, n in K12_ROWS:
+        xs, dt, cum, bs, cs, dy, dS, chunk = _ssd_train_inputs(g, b, s, h, p,
+                                                               n)
+        nc, q = cum.shape[1], chunk
+        tri = q * (q + 1) // 2
+        args = (xs, dt, cum, bs, cs, dy, dS)
+        err = held(name, SK.ssd_chunk_backward(*args, chunk=chunk),
+                   SK.ssd_chunk_backward(*args, chunk=chunk),
+                   ssd_chunk_backward_ref(*args, chunk=chunk))
+        # operations (multiply-adds as 2): C.B once a chunk (the heads
+        # share B and C), then per (chunk, head) over the lower triangle dM
+        # (p), dC and dB (n each) and dxdt (p), and the state terms B dS^T
+        # and xdt dS (q p n each) -- products at fp32 accuracy, bound as
+        # three TF32 products at 495 TFLOP/s (K6's and K10's yardstick),
+        # the fp32 SIMT bound at 67 beside it; bytes: x, B, C, dt, cum, dy
+        # and dS read once, dx, ddt, dcum, dB, dC written once
+        nops = (2 * b * nc * tri * n
+                + 2 * b * nc * h * (tri * (2 * p + 2 * n) + 2 * q * p * n))
+        nbytes = 4 * (2 * b * s * h * p + 4 * b * s * n + 2 * b * s * h
+                      + 2 * b * nc * q * h + b * nc * q * h * p
+                      + b * nc * h * p * n)
+        simt_b = bound(nbytes, nops)[0]
+        add(dict(
+            name=name, wrapper="ssd_chunk_backward", path=path,
+            source="src/repro_torch/kernels/ssd_scan/csrc/"
+            "ssd_chunk_backward.cu",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:42 (its "
+            "gradient: JAX differentiates ops.py's jnp path)",
+            max_abs_err=err,
+            shape=f"b={b} s={s} nc={nc} Q={q} heads={h} P={p} N={n} fp32, "
+            f"B/C shared by the heads (bound: three TF32 products, fp32 "
+            f"SIMT {simt_b * 1e3:.3f} us)",
+            **timings(lambda: SK.ssd_chunk_backward(*args, chunk=chunk),
+                      lambda: ssd_chunk_backward_ref(*args, chunk=chunk),
+                      iters=5, plain_iters=2),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 3 * nops, TF32_TC_FLOPS)))))
+        if path == "zamba2_train":
+            # K7's fp32 SIMT forward at the same shape
+            (y, st), variant = variant_of(SK.ssd_chunk, lambda: SK.ssd_chunk(
+                xs, dt, cum, bs, cs, chunk=chunk))
+            assert variant == "simt", f"K7 fp32 took {variant}"
+            wy, wst = ssd_chunk_ref(xs, dt, cum, bs, cs, chunk=chunk)
+            torch.testing.assert_close(y, wy, **FP32)
+            torch.testing.assert_close(st, wst, **FP32)
+            ferr = max(max_err(y, wy), max_err(st, wst))
+            del y, st, wy, wst
+            # products C.B, M.xdt and B^T(e xdt) as three TF32 products
+            # each; the decay mask and e xdt (elementwise) at fp32's rate
+            fprod = (2 * b * nc * tri * n + 2 * b * nc * h * tri * p
+                     + 2 * b * nc * h * q * n * p)
+            fother = b * nc * h * tri + 2 * b * nc * h * q * p
+            fops = fprod + fother
+            fbytes = 4 * (b * s * h * p + 2 * b * s * n + b * s * h
+                          + b * nc * q * h + b * nc * q * h * p
+                          + b * nc * h * p * n)
+            fsimt_b = bound(fbytes, fops)[0]
+            add(dict(
+                name="ssd_chunk.train", wrapper="ssd_chunk", path=path,
+                source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
+                replaces="src/repro/kernels/ssd_scan/kernel.py:42",
+                max_abs_err=ferr, variant="simt",
+                shape=f"b={b} s={s} nc={nc} Q={q} heads={h} P={p} N={n} "
+                f"fp32 (the training forward; bound: three TF32 products, "
+                f"fp32 SIMT {fsimt_b * 1e3:.3f} us)",
+                **timings(lambda: SK.ssd_chunk(xs, dt, cum, bs, cs,
+                                               chunk=chunk),
+                          lambda: ssd_chunk_ref(xs, dt, cum, bs, cs,
+                                                chunk=chunk),
+                          iters=5, plain_iters=2),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    fbytes, 3 * fprod + fother * TF32_TC_FLOPS / FP32_FLOPS,
+                    TF32_TC_FLOPS)))))
+        del xs, dt, cum, bs, cs, dy, dS, args
+        torch.cuda.empty_cache()
+
+    for name, path, r, d, width in K11_GATE_ROWS:
+        y = torch.randn(r, d, generator=g, device=dev)
+        proj = torch.randn(r, width, generator=g, device=dev)
+        z = proj[:, d:2 * d]                    # in_proj's gate columns
+        w = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        dout = torch.randn(r, d, generator=g, device=dev)
+        err = held(name, RK.rmsnorm_backward_gate(y, z, w, dout),
+                   RK.rmsnorm_backward_gate(y, z, w, dout),
+                   gated_rmsnorm_backward_ref(y, z, w, dout))
+        split = k11_kernel_times(lambda: RK.rmsnorm_backward_gate(y, z, w,
+                                                                  dout))
+        # bytes: y, z and the output's gradient read, dy, dz written, w and
+        # dw; ~25 operations an element (silu and its derivative)
+        nbytes = 4 * (5 * r * d + 2 * d)
+        add(dict(
+            name=name, wrapper="rmsnorm_backward", path=path,
+            variant="gate", source="src/repro_torch/kernels/rmsnorm/csrc/"
+            "rmsnorm_backward.cu", replaces="src/repro/kernels/rmsnorm/"
+            "kernel.py:24 (its gate composition's gradient)",
+            max_abs_err=err,
+            shape=f"rows={r} D={d} fp32, z a column view of {width}-wide "
+            f"rows; kernels (torch.profiler): rows "
+            f"{split['rows'] * 1e3:.2f} us, dw sum {split['dw'] * 1e3:.2f} us",
+            **timings(lambda: RK.rmsnorm_backward_gate(y, z, w, dout),
+                      lambda: gated_rmsnorm_backward_ref(y, z, w, dout)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 25 * r * d)))))
+        del y, proj, z, w, dout
+        torch.cuda.empty_cache()
+
+
+def _ssm_launches_per_step(cfg):
+    """{wrapper: launches a training step} of an ssm / hybrid config, and
+    {wrapper: {variant: launches}}: one K7 / K12 and one gated norm a
+    Mamba2 layer; the hybrid's shared attention block (a K6 / K10 each,
+    two add norms) after every ``attn_every`` layers; the final norm an add
+    (a sublayer's output is pending)."""
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    norms = cfg.n_layers + 2 * n_attn + 1
+    want = {"ssd_chunk": cfg.n_layers, "ssd_chunk_backward": cfg.n_layers,
+            "rmsnorm": norms, "rmsnorm_backward": norms,
+            "flash_prefill": n_attn, "flash_backward": n_attn}
+    by_variant = {"rmsnorm": {"gate": cfg.n_layers, "add": norms - cfg.n_layers},
+                  "rmsnorm_backward": {"gate": cfg.n_layers,
+                                       "add": norms - cfg.n_layers},
+                  "ssd_chunk": {"simt": cfg.n_layers}}
+    if n_attn:
+        by_variant["flash_prefill"] = {"tf32x3": n_attn}
+        by_variant["flash_backward"] = {"tf32x3": n_attn}
+    return want, by_variant
+
+
+def phase3_ssm_train_path(smi, arch):
+    """``runtime.train`` of ``arch`` (zamba2-2.7b or mamba2-130m) on the
+    card at full width and depth, fp32 weights: the launch counts set to
+    0 just before the run and read just after, held per step (K7 / K12
+    and K8 / K11's gate a Mamba2 layer, their add norms, K6 / K10 for the
+    shared attention); ms a warm step, tokens/s, peak memory; every
+    parameter's gradient finite and non-zero after the run (zamba2);
+    one warm step under ``torch.profiler`` (idle share, device ms by kind).
+    Returns (launch counts, launches by variant)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step, train
+    from repro_torch.tree import leaves, value_and_grad
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    kw = SSM_TRAIN[arch]
+    n_par = cfg.param_count()
+    tc = TrainConfig(seed=SEED, log_every=1, **kw)
+    step_s = []
+    reset_launch_counts()
+    out = train(cfg, init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(SEED), torch.float32), tc,
+        device="cuda", on_metrics=lambda st, m: step_s.append(m["step_s"]))
+    counts, variants = launch_counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    losses = out["losses"]
+    assert out["final_step"] == kw["steps"] and out["restarts"] == 0
+    assert all(map(math.isfinite, losses)), losses
+    toks = kw["batch"] * kw["seq"]
+    warm = step_s[1:]
+    log(f"training path ({arch}) on {smi}: full width and depth "
+        f"({cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+        f"{n_par / 1e9:.3f} B fp32 params), {kw['steps']} steps of "
+        f"{kw['batch']} x {kw['seq']} tokens: losses {losses}; ms a step "
+        f"{[round(t * 1e3, 3) for t in step_s]} (first step cold); warm "
+        f"{sum(warm) / len(warm) * 1e3:.3f} ms a step = "
+        f"{toks * len(warm) / sum(warm):.1f} tokens/s; max_memory_allocated "
+        f"{peak:.2f} GB, max_memory_reserved {reserved:.2f} GB")
+    log(f"launches on the {arch} training path: {counts}")
+    log(f"launches by variant on the {arch} training path: {variants}")
+    want, by_variant = _ssm_launches_per_step(cfg)
+    for k in SSM_TRAIN_KERNELS:
+        assert counts[k] == kw["steps"] * want[k], \
+            f"{arch} {k}: {counts[k]} launches in {kw['steps']} steps, " \
+            f"want {want[k]} a step"
+    for k, per in by_variant.items():
+        assert variants[k] == {v: kw["steps"] * c for v, c in per.items()}, \
+            f"{arch} {k} by variant: {variants[k]}"
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _train_batch(cfg, kw["steps"], kw["batch"], kw["seq"], "cuda")
+    if arch == "zamba2-2.7b":
+        del opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss, grads = value_and_grad(lambda p, b: loss_fn(cfg, p, b),
+                                     params, batch)
+        bad = [i for i, gr in enumerate(leaves(grads))
+               if not bool(torch.isfinite(gr).all()) or not bool(gr.any())]
+        assert not bad, f"{arch}: parameter leaves with a zero or " \
+            f"non-finite gradient: {bad}"
+        log(f"gradients ({arch}) on {smi}: all {len(leaves(grads))} "
+            f"parameter leaves finite and non-zero (loss {float(loss):.6f})")
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt_state = adamw.init(params)
+    step_fn = build_step(cfg, tc)
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _r, m = step_fn(params, opt_state, None, batch)
+        return float(m["loss"])
+
+    one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        wall = time.perf_counter() - t0
+    busy, kinds, dev_rows = _profile_kinds(prof)
+    log(f"profile: {arch} training step on {smi}: wall {wall:.3f} s under "
+        f"the profiler, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}; device ms by kind " + json.dumps(kinds))
+    for e in sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    del params, opt_state, batch, step_fn, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+# Phase 4 of the zamba2 training lane: the card against the CPU at full
+# width and 6 layers (one group: 6 Mamba2 layers and the shared attention
+# block), one batch of 2 x 256 tokens, with the tinyllama lane's
+# tolerances (TRAIN_P4_*): the loss within rtol 1e-5, each gradient leaf
+# within 1e-4 of its largest magnitude, the parameters after 2 AdamW steps
+# within 2 x the summed learning rates (plus 1e-6 of each value)
+SSM_P4_LAYERS, SSM_P4_BATCH, SSM_P4_SEQ = 6, 2, 256
+
+
+def phase4_ssm_train_card_vs_cpu(smi):
+    """zamba2's training on the card (K7 / K12, K8 / K11's gate, K6 / K10)
+    against the CPU (the plain versions), then the train CLI's ssm and
+    hybrid runs on the card.  Returns the 2-step training state on the
+    CPU (params, opt_state) for the checkpoint phase."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, build_step
+    from repro_torch.tree import leaves, tree_map, value_and_grad
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=SSM_P4_LAYERS)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 50),
+                         torch.float32)
+    batch = _train_batch(cfg, 0, SSM_P4_BATCH, SSM_P4_SEQ, "cpu")
+    tc = TrainConfig(steps=4, batch=SSM_P4_BATCH, seq=SSM_P4_SEQ)
+    res, state = {}, None
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = value_and_grad(lambda pp, bb: loss_fn(cfg, pp, bb), p,
+                                     b)
+        step_fn, st = build_step(cfg, tc), adamw.init(p)
+        lrs = []
+        for _ in range(2):
+            p, st, _r, m = step_fn(p, st, None, b)
+            lrs.append(float(m["lr"]))
+        res[dev] = (float(loss), [gr.cpu() for gr in leaves(grads)],
+                    [t.cpu() for t in leaves(p)], lrs)
+        if dev == "cpu":
+            state = (p, st)
+        log(f"phase 4 zamba2 training lane on {dev}: loss "
+            f"{float(loss):.7f}, gradients and 2 AdamW steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del b, grads, step_fn
+        if dev == "cuda":
+            del p, st
+    torch.cuda.empty_cache()
+    (lc, gc_, pc, lrs), (lh, gh, ph, _) = res["cuda"], res["cpu"]
+    assert math.isclose(lc, lh, rel_tol=TRAIN_P4_LOSS["rtol"]), (lc, lh)
+    g_worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(gc_, gh))
+    assert g_worst <= TRAIN_P4_GRAD_REL, g_worst
+    step_bound = 2 * sum(lrs)
+    p_worst = 0.0
+    for a, b in zip(pc, ph):
+        d = (a - b).abs()
+        assert bool((d <= step_bound + 1e-6 * b.abs()).all()), \
+            float(d.max())
+        p_worst = max(p_worst, float(d.max()))
+    log(f"phase 4 zamba2 training lane (full width, {cfg.n_layers} layers, "
+        f"{SSM_P4_BATCH} x {SSM_P4_SEQ} tokens) on {smi}: loss card "
+        f"{lc:.7f} cpu {lh:.7f} (rel {abs(lc - lh) / abs(lh):.2e}); worst "
+        f"gradient leaf error / its max {g_worst:.2e} (limit "
+        f"{TRAIN_P4_GRAD_REL}); params after 2 AdamW steps: max |diff| "
+        f"{p_worst:.3e} (limit {step_bound:.3e} = 2 x the summed lr)")
+    del res, params, batch
+    # the train CLI (reduced configs) on the card, both families
+    for arch in ("zamba2-2.7b", "mamba2-130m"):
+        out = train_cli.main(["--arch", arch, "--steps", "3", "--batch", "2",
+                              "--seq", "64"])
+        assert out["final_step"] == 3 and all(map(math.isfinite,
+                                                  out["losses"]))
+        log(f"python -m repro_torch.launch.train --arch {arch} on the card: "
+            f"losses {out['losses']}")
+    torch.cuda.empty_cache()
+    return state
+
+
+def phase3_collectives_and_checkpoint(smi, state):
+    """On a one-rank NCCL group: each device collective of
+    ``dist.collectives`` on the card equals its numpy mirror; then the
+    zamba2 training state of phase 4 (full width, 6 layers, after 2 AdamW
+    steps), placed on the card as DTensors by ``dist.sharding`` on a 1 x 1
+    mesh, round-trips through ``save_sharded`` / ``restore_sharded`` bit
+    for bit (restored as DTensors and as plain tensors), with each
+    direction's GB/s (warm page cache)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves, tree_map
+    scratch = ROOT / "build" / "ckpt"
+    scratch.mkdir(parents=True, exist_ok=True)
+    rdv = tempfile.mkdtemp(dir=scratch)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv", rank=0,
+                            world_size=1)
+    try:
+        rng = np.random.default_rng(SEED)
+        x = rng.integers(-1000, 1000, (8, 5)).astype(np.int64)
+        xt = torch.from_numpy(x).cuda()
+        for name, fn, mirror in (("psum", C.psum, C.np_psum),
+                                 ("all_gather", C.all_gather,
+                                  C.np_all_gather),
+                                 ("reduce_scatter", C.reduce_scatter,
+                                  C.np_reduce_scatter),
+                                 ("all_to_all", C.all_to_all,
+                                  C.np_all_to_all)):
+            got = fn(xt).cpu().numpy()
+            assert np.array_equal(got, mirror([x])[0]), name
+        log(f"collectives on a one-rank NCCL group on {smi}: psum, "
+            f"all_gather, reduce_scatter, all_to_all equal their numpy "
+            f"mirrors (int64 (8, 5))")
+        mesh = make_host_mesh(data=1, model=1)
+        params, opt = state
+        tree = {"params": params, "opt": {"m": opt["m"], "v": opt["v"]}}
+        sh = {"params": shd.param_shardings(mesh, params),
+              "opt": {"m": shd.param_shardings(mesh, params),
+                      "v": shd.param_shardings(mesh, params)}}
+        placed = tree_map(lambda t, ns: shd.shard(t.cuda(), ns), tree, sh)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+        d = tempfile.mkdtemp(dir=scratch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_sharded(d, 2, placed, wts=2)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, man = ckpt.restore_sharded(d, placed)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(a.to_local().cpu(), b)
+                   for a, b in zip(leaves(out), leaves(tree)))
+        plain, _m = ckpt.restore_sharded(d, tree)
+        same_plain = all(torch.equal(a, b)
+                         for a, b in zip(leaves(plain), leaves(tree)))
+        assert same and same_plain and man["wts"] == 2
+        log(f"sharded checkpoint of the zamba2 training state (full width, "
+            f"{SSM_P4_LAYERS} layers: params and both moments, "
+            f"{nbytes / 1e9:.3f} GB, {man['n_leaves']} leaves, "
+            f"{sum(len(e['pieces']) for e in man['leaves'])} pieces) on "
+            f"{smi}: save_sharded {t_save:.2f} s = {nbytes / t_save / 1e9:.2f} "
+            f"GB/s, restore_sharded (DTensors on the card) {t_restore:.2f} s "
+            f"= {nbytes / t_restore / 1e9:.2f} GB/s (warm page cache); bit "
+            f"for bit as DTensors and as plain tensors")
+        del placed, out, plain
+        shutil.rmtree(d, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3745,6 +4284,7 @@ def main() -> int:
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
     phase2_backward_kernels(rows)
+    phase2_ssm_backward_kernels(rows)
     phase2_whisper_attention(rows)
     t_l2, t_smem = phase2_coherence_sim(rows)
     stamp("phase 2")
@@ -3762,6 +4302,11 @@ def main() -> int:
     stamp("phase 3 (kimi-k2 paged path)")
     train_counts = phase3_train_path(smi)
     stamp("phase 3 (training path)")
+    ssm_train_counts = {}
+    for arch in SSM_TRAIN:
+        ssm_train_counts[arch.split("-")[0] + "_train"] = \
+            phase3_ssm_train_path(smi, arch)
+        stamp(f"phase 3 (training path, {arch})")
     whisper_counts = phase3_whisper_serve(smi)
     stamp("phase 3 (whisper serving)")
     whisper_train_counts = phase3_whisper_train(smi)
@@ -3776,6 +4321,11 @@ def main() -> int:
     stamp("phase 4 (wave paths)")
     phase4_train_card_vs_cpu(smi)
     stamp("phase 4 (training path)")
+    state = phase4_ssm_train_card_vs_cpu(smi)
+    stamp("phase 4 (zamba2 training lane, train CLI)")
+    phase3_collectives_and_checkpoint(smi, state)
+    del state
+    stamp("collectives and sharded checkpoint")
     phase4_whisper_card_vs_cpu(smi)
     stamp("phase 4 (whisper lanes)")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3783,13 +4333,15 @@ def main() -> int:
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
             "unfused_ms", "floor_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
-    # main path; K10 and K11: the training path); K8's, K10's and K11's
-    # rows count their variant's
+    # main path; K10 and K11: the training path; K12 and K11's gate: the
+    # zamba2 / mamba2 training paths); K8's, K10's and K11's rows count
+    # their variant's
     # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
                    "simulator": sim_counts, "train": train_counts,
                    "whisper": whisper_counts,
-                   "whisper_train": whisper_train_counts, **wave_counts}
+                   "whisper_train": whisper_train_counts,
+                   **ssm_train_counts, **wave_counts}
     for r in rows:
         c, v = path_counts.get(r.get("path", "paged"), ({}, {}))
         wrapper = r.get("wrapper", r["name"])

@@ -1,6 +1,6 @@
 """Versioned, atomic checkpointing in the JAX package's on-disk layout (the
-port of ``repro.checkpoint.ckpt``'s ``save`` / ``restore`` /
-``latest_step``).
+port of ``repro.checkpoint.ckpt``: ``save`` / ``restore`` /
+``latest_step``, and ``save_sharded`` / ``restore_sharded``).
 
 Layout:  <dir>/step_<N>/
              manifest.json    {step, wts (Tardis version), tree structure,
@@ -17,8 +17,22 @@ package wrote into the port's parameter and optimizer trees, and the JAX
 package restores one the port wrote.  numpy has no bfloat16 without
 ``ml_dtypes`` (the card's machine has none): a bf16 leaf is stored as its
 uint16 bits with dtype ``"bfloat16"`` in the manifest (the JAX package
-reads such a leaf back as uint16).  ``save_sharded`` / ``restore_sharded``
-wait for the port's sharding layer (``ROADMAP.md`` item 6).
+reads such a leaf back as uint16).
+
+``save_sharded`` writes a tree whose leaves may be ``DTensor``s (placed by
+:mod:`repro_torch.dist.sharding`) without gathering: each rank writes the
+pieces it holds -- its local shard of each leaf, a per-layer list's
+shards stacked into one piece, as the JAX package's stacked leaf splits --
+each tagged with its (start, stop) box in the global (stacked) shape;
+replicated copies are written once (by the ranks at coordinate 0 of the
+mesh dims that replicate the leaf).  Every rank writes its own
+``shard_<i>.npz`` files into one directory and rank 0 writes the manifest
+of all pieces, in the layout of the JAX package's ``save_sharded``, which
+reads it (and whose checkpoints :func:`restore_sharded` reads).
+``restore_sharded`` rebuilds each leaf in the placement of ``tree_like``'s
+leaf: a ``DTensor`` leaf reads exactly its local box from whichever
+pieces overlap it (the saved mesh shape need not be the target's), a
+plain one the whole leaf.
 """
 from __future__ import annotations
 
@@ -187,8 +201,8 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest.get("sharded"):
-        raise ValueError(f"{path} was written by save_sharded(), which the "
-                         f"port does not read yet")
+        raise ValueError(f"{path} was written by save_sharded(): read it "
+                         f"with restore_sharded()")
     shapes = _shapes(tree_like)
     if len(shapes) != manifest["n_leaves"]:
         raise ValueError(f"tree mismatch: {len(shapes)} leaves vs "
@@ -206,3 +220,248 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
         arrays.append(_from_numpy(arr, entry["dtype"]).to(
             device or "cpu"))
     return _unflat(tree_like, iter(arrays)), manifest
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoints
+# ---------------------------------------------------------------------------
+
+def _dtensor_cls():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _local_box(t) -> Tuple[Tuple[int, int], ...]:
+    """The (start, stop) box of the part of ``t`` this rank holds."""
+    if isinstance(t, _dtensor_cls()):
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        shape, off = compute_local_shape_and_global_offset(
+            t.shape, t.device_mesh, t.placements)
+        return tuple((o, o + n) for o, n in zip(off, shape))
+    return tuple((0, d) for d in t.shape)
+
+
+def _writes(t) -> bool:
+    """Whether this rank writes its part of ``t``: it is at coordinate 0
+    of every mesh dim that does not shard ``t`` (a replica is written
+    once)."""
+    if not isinstance(t, _dtensor_cls()):
+        return _rank() == 0
+    from torch.distributed.tensor import Shard
+    coord = t.device_mesh.get_coordinate()
+    if coord is None:
+        return False
+    return all(isinstance(p, Shard) or c == 0
+               for p, c in zip(t.placements, coord))
+
+
+def _local(t) -> torch.Tensor:
+    if isinstance(t, _dtensor_cls()):
+        t = t.to_local()
+    return t.detach().cpu()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _gather_objects(obj) -> list:
+    """``obj`` of every rank, in rank order (one process: ``[obj]``)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def save_sharded(ckpt_dir: str, step: int, tree, *, wts: int = 0,
+                 keep: int = 3) -> str:
+    """Write one checkpoint without gathering (see the module docstring);
+    every rank of the default group calls it.  Returns the checkpoint
+    path."""
+    from ..dist.sharding import jax_layout
+    layout = jax_layout(tree)
+    rank = _rank()
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_") if rank == 0 \
+        else None
+    tmp = _gather_objects(tmp)[0]
+    # this rank's pieces: (leaf index, box, array) in leaf order
+    mine, files = [], []
+    shard, shard_bytes = {}, 0
+
+    def flush():
+        nonlocal shard, shard_bytes
+        if shard:
+            name = f"shard_r{rank}_{len(files)}.npz"
+            np.savez(os.path.join(tmp, name), **shard)
+            files.append(name)
+            shard, shard_bytes = {}, 0
+
+    dtypes = []
+    for i, (_path, shape, parts) in enumerate(layout):
+        first = parts[0]
+        dtypes.append(_to_numpy(torch.empty(0, dtype=first.dtype))[1])
+        if not _writes(first):
+            continue
+        box = _local_box(first)
+        stack = len(shape) - len(box)
+        local = torch.stack([_local(t) for t in parts]) if stack else \
+            _local(first)
+        local = local.reshape(shape[:stack] + local.shape[1:] if stack > 1
+                              else local.shape)
+        arr, _dt = _to_numpy(local.contiguous())
+        key = f"leaf_{i}_r{rank}"
+        mine.append({"leaf": i, "key": key, "file": len(files),
+                     "start": [0] * stack + [a for a, _ in box],
+                     "stop": list(shape[:stack]) + [b for _, b in box]})
+        shard[key] = arr
+        shard_bytes += arr.nbytes
+        if shard_bytes >= _MAX_SHARD_BYTES:
+            flush()
+    flush()
+    everyone = _gather_objects((mine, files))
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if rank == 0:
+        manifest: Dict[str, Any] = {
+            "step": int(step), "wts": int(wts), "sharded": True,
+            "treedef": _treedef(tree), "n_leaves": len(layout),
+            "leaves": [{"idx": i, "shape": list(shape), "dtype": dtypes[i],
+                        "pieces": []}
+                       for i, (_p, shape, _t) in enumerate(layout)],
+            "shards": []}
+        for pieces, names in everyone:
+            base = len(manifest["shards"])
+            manifest["shards"].extend(names)
+            for pc in pieces:
+                manifest["leaves"][pc["leaf"]]["pieces"].append(
+                    {"key": pc["key"], "shard": base + pc["file"],
+                     "start": pc["start"], "stop": pc["stop"]})
+        for j, entry in enumerate(manifest["leaves"]):
+            if not entry["pieces"]:
+                raise RuntimeError(f"leaf {j}: no rank wrote a piece")
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                       # atomic publish
+        _write_latest(ckpt_dir, f"step_{step}")
+        _gc(ckpt_dir, keep)
+    _gather_objects(None)                           # all see it published
+    return final
+
+
+def _read_box(entry, shards, want) -> np.ndarray:
+    """Assemble the box ``want`` ((start, stop) pairs) of one leaf from
+    its saved pieces (the JAX package's ``_read_box``)."""
+    dtype = "uint16" if entry["dtype"] == "bfloat16" else entry["dtype"]
+    out = np.empty([b - a for a, b in want], dtype)
+    filled = 0
+    for p in entry["pieces"]:
+        box = list(zip(p["start"], p["stop"]))
+        inter = [(max(a, pa), min(b, pb))
+                 for (a, b), (pa, pb) in zip(want, box)]
+        if any(x >= y for x, y in inter):
+            continue                                # piece outside the box
+        data = shards(p["key"])
+        if data.dtype.itemsize == 2 and dtype == "uint16":
+            data = data.view(np.uint16)             # bf16 bits
+        src = tuple(slice(x - pa, y - pa)
+                    for (x, y), (pa, _) in zip(inter, box))
+        dst = tuple(slice(x - a, y - a)
+                    for (x, y), (a, _) in zip(inter, want))
+        out[dst] = data[src]
+        filled += int(np.prod([y - x for x, y in inter]))
+    if filled != out.size:
+        raise ValueError(f"leaf {entry['idx']}: pieces cover {filled}/"
+                         f"{out.size} of {want}")
+    return out
+
+
+def restore_sharded(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
+                    device=None) -> Tuple[Any, Dict[str, Any]]:
+    """Restore a sharded checkpoint (the port's or the JAX package's) into
+    ``tree_like``'s structure and placements: a ``DTensor`` leaf comes
+    back a ``DTensor`` on its mesh with its placements, its local part
+    read from the pieces that overlap it; any other leaf comes back whole
+    on ``device`` (default: the CPU).  Returns (tree, manifest)."""
+    from ..dist.sharding import jax_layout
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if not manifest.get("sharded"):
+        raise ValueError(f"{path} was written by save(), not "
+                         f"save_sharded()")
+    layout = jax_layout(tree_like)
+    if len(layout) != manifest["n_leaves"]:
+        raise ValueError(f"tree mismatch: {len(layout)} leaves vs "
+                         f"{manifest['n_leaves']} in {path}")
+    where = {pc["key"]: manifest["shards"][pc["shard"]]
+             for e in manifest["leaves"] for pc in e["pieces"]}
+    opened: Dict[str, Any] = {}
+    read: Dict[str, np.ndarray] = {}    # this leaf's pieces, read once
+
+    def shards(key):
+        if key not in read:
+            name = where[key]
+            if name not in opened:
+                opened[name] = np.load(os.path.join(path, name))
+            read[key] = opened[name][key]
+        return read[key]
+
+    DTensor = _dtensor_cls()
+    out = []
+    for (_p, shape, parts), entry in zip(layout, manifest["leaves"]):
+        if tuple(entry["shape"]) != tuple(shape):
+            raise ValueError(f"leaf {entry['idx']}: saved shape "
+                             f"{tuple(entry['shape'])}, want {shape}")
+        stack = len(shape) - parts[0].dim()
+        read.clear()
+        for j, like in enumerate(parts):
+            idx = np.unravel_index(j, shape[:stack]) if stack else ()
+            box = _local_box(like)
+            want = tuple((int(i), int(i) + 1) for i in idx) + box
+            arr = _read_box(entry, shards, want)
+            t = _from_numpy(arr.reshape([b - a for a, b in box]),
+                            entry["dtype"])
+            if isinstance(like, DTensor):
+                local_dev = like.to_local().device
+                out.append(DTensor.from_local(
+                    t.to(local_dev), like.device_mesh, like.placements,
+                    run_check=False, shape=like.shape,
+                    stride=like.stride()))
+            else:
+                out.append(t.to(device or "cpu"))
+    for z in opened.values():
+        z.close()
+    return _unflat_parts(tree_like, iter(out)), manifest
+
+
+def _unflat_parts(like, leaves):
+    """``like``'s structure over ``leaves`` given one per port leaf, in
+    the order :func:`repro_torch.dist.sharding.jax_layout` lists them
+    (each JAX leaf's per-layer parts in stack order)."""
+    from ..dist.sharding import jax_layout
+    layout = jax_layout(like)
+    by_id = {}
+    for _p, _s, parts in layout:
+        for t in parts:
+            by_id[id(t)] = next(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(walk(v) for v in t)
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return by_id[id(t)]
+    return walk(like)

@@ -78,3 +78,16 @@ class Prefetcher:
 
     def close(self):
         self._stop.set()
+
+
+def shard_batch(batch: Dict[str, np.ndarray], shardings):
+    """Place a host batch onto the mesh with the given shardings
+    (``dist.sharding.NamedSharding``s by key): each leaf becomes a
+    ``DTensor`` on its sharding's mesh, moved to the mesh's device."""
+    from ..dist.sharding import shard
+    out = {}
+    for k, v in batch.items():
+        ns = shardings[k]
+        t = torch.as_tensor(np.asarray(v)).to(ns.mesh.device_type)
+        out[k] = shard(t, ns)
+    return out

@@ -1,12 +1,18 @@
-"""Distribution layer of the port (``repro.dist``).
+"""Distribution layer of the port (``repro.dist``): sharding rules,
+gradient and device collectives, activation annotations.
 
-:mod:`.collectives` holds the gradient collectives of one process -- int8
-error-feedback compression and microbatch accumulation -- and the
-deterministic host mirrors of the device collectives (the sharded lease
-directory's per-wave shard exchange rides them).  The device collectives
-themselves and the sharding rules are not ported yet (``ROADMAP.md``
-§1 item 1).
+  * :mod:`.sharding`    -- specs for params / optimizer state / batches /
+    decode caches (divisibility-guarded, expert-parallel MoE placement,
+    pod-axis fallback) and their ``DTensor`` placements on a
+    ``DeviceMesh``,
+  * :mod:`.collectives` -- int8 error-feedback gradient compression,
+    microbatch accumulation, the device collectives over a
+    ``torch.distributed`` group and their deterministic numpy mirrors
+    (the sharded lease directory's per-wave shard exchange rides them),
+  * :mod:`.annotate`    -- activation placements bound to the ambient
+    mesh (no-ops outside one, so model code runs unchanged on one
+    device).
 """
-from . import collectives
+from . import annotate, collectives, sharding
 
-__all__ = ["collectives"]
+__all__ = ["annotate", "collectives", "sharding"]

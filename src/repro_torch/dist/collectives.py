@@ -8,8 +8,14 @@ feedback), so the *cumulative* dequantized sum tracks the true gradient
 sum to within one quantization step.  ``torch.round`` rounds half to even,
 as ``jnp.round`` does.  ``microbatch_grads`` accumulates gradients over
 ``n_micro`` equal slices of the batch in fp32, in slice order (the JAX
-package's ``lax.scan``).  The device collectives (``psum`` and the rest,
-``collectives.py:111-141``) are not ported yet (``ROADMAP.md`` §1 item 1).
+package's ``lax.scan``).
+
+The device collectives ``psum`` / ``all_gather`` / ``reduce_scatter`` /
+``all_to_all`` (the port of ``collectives.py:111-141``) run over a
+``torch.distributed`` process group (``axis``; None: the default group)
+in place of a named mesh axis, tiled on dim 0 as the JAX ones are: NCCL
+on the card, gloo on the CPU.  gloo has no reduce-scatter, so there it is
+an all-reduce of which each rank keeps its block -- the same result.
 
 The numpy mirrors are the port of ``np_psum`` / ``np_all_gather`` /
 ``np_reduce_scatter`` / ``np_all_to_all`` (``collectives.py:144-176``):
@@ -29,8 +35,9 @@ import torch
 from ..tree import leaves, tree_map, unflatten, value_and_grad
 
 __all__ = ["init_residual", "compress_grads", "decompress_grads",
-           "microbatch_grads", "np_psum", "np_all_gather",
-           "np_reduce_scatter", "np_all_to_all"]
+           "microbatch_grads", "psum", "all_gather", "reduce_scatter",
+           "all_to_all", "np_psum", "np_all_gather", "np_reduce_scatter",
+           "np_all_to_all"]
 
 Tree = Any
 
@@ -102,6 +109,63 @@ def microbatch_grads(loss_fn: Callable[[Tree, Tree], torch.Tensor],
     inv = 1.0 / n_micro
     return acc_loss * inv, tree_map(lambda g, p: (g * inv).to(p.dtype), acc,
                                     params)
+
+
+# ---------------------------------------------------------------------------
+# Device collectives over a torch.distributed group (the named mesh axis)
+# ---------------------------------------------------------------------------
+
+def _world(axis) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(axis)
+
+
+def psum(x, axis=None):
+    """All-reduce-sum over the group ``axis``; returns a new tensor."""
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis)
+    return out
+
+
+def all_gather(x, axis=None):
+    """Concatenate every rank's tensor along dim 0 (tiled all-gather), in
+    rank order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(_world(axis))]
+    dist.all_gather(parts, x.contiguous(), group=axis)
+    return torch.cat(parts, dim=0)
+
+
+def reduce_scatter(x, axis=None):
+    """Sum across the group, then split the result along dim 0: rank ``i``
+    keeps rows ``[i*n/N, (i+1)*n/N)`` of the sum."""
+    import torch.distributed as dist
+    n = _world(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter dim 0 ({x.shape[0]}) not "
+                         f"divisible by group size {n}")
+    rank = dist.get_rank(axis)
+    if dist.get_backend(axis) == "nccl":
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x.contiguous(),
+                                   op=dist.ReduceOp.SUM, group=axis)
+        return out
+    return psum(x, axis).chunk(n, dim=0)[rank].clone()
+
+
+def all_to_all(x, axis=None):
+    """Transpose shards across the group: row block j of rank i lands on
+    rank j as row block i."""
+    import torch.distributed as dist
+    n = _world(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all dim 0 ({x.shape[0]}) not divisible "
+                         f"by group size {n}")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=axis)
+    return out
 
 
 def np_psum(shards: Sequence[np.ndarray]) -> List[np.ndarray]:

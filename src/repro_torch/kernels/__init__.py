@@ -5,9 +5,10 @@ Each subpackage is ``kernel.py`` (the ctypes wrapper with its launch count),
 ``ref.py`` (the plain PyTorch version); CUDA sources live in ``csrc/`` and
 build at first use (:mod:`._build`).  A wrapper given a CPU tensor runs
 the plain version; given a CUDA tensor it launches its kernel or raises.
-K6 and K8 (plain, add) are differentiable through their ``ops``
-(``torch.autograd.Function``s whose backward launches K10 and K11); every
-other wrapper is forward-only and raises under autograd (:mod:`._guard`).
+K6, K7 and K8 (plain, add, gate) are differentiable through their
+``ops`` (``torch.autograd.Function``s whose backward launches K10, K12 and
+K11); every other wrapper is forward-only and raises under autograd
+(:mod:`._guard`).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ def wrappers() -> Dict[str, Callable]:
             "flash_prefill": fa.flash_prefill,
             "flash_backward": fa.flash_backward,
             "ssd_chunk": ss.ssd_chunk,
+            "ssd_chunk_backward": ss.ssd_chunk_backward,
             "rmsnorm": rn.rmsnorm_2d,
             "rmsnorm_backward": rn.rmsnorm_backward,
             "sim_run": cs.sim_run}

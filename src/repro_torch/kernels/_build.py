@@ -115,6 +115,9 @@ SIGNATURES = {
     "tardis_ssd_chunk": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
                          + [_VP] * 3 + [_I64] * 3 + [_I32] * 9
                          + [_VP] * 3),
+    "tardis_ssd_chunk_backward": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
+                                  + [_VP] * 3 + [_I64] * 3 + [_VP] * 2
+                                  + [_I32] * 10 + [_VP] * 10),
     "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
                         _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
     "tardis_flash_backward": ([_VP] * 11 + [_I32] * 6 + [_I64] * 6
@@ -122,6 +125,9 @@ SIGNATURES = {
     "tardis_rmsnorm_backward": ([_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP,
                                  _I64, _VP, _VP, _I32, _I32, _I32, _F32,
                                  _I32, _I32, _I32]),
+    "tardis_rmsnorm_backward_gate": ([_VP, _I64] * 3 + [_VP, _VP, _I64, _VP,
+                                      _I64, _VP, _VP, _I32, _I32, _I32,
+                                      _F32, _I32, _I32, _I32]),
     "tardis_sim_run": [_VP, _I32, _VP, _I32, _I32, _I32, _I32, _VP],
     "tardis_l2_chase": [_VP, _I32, _VP, _VP],
     "tardis_smem_chase": [_VP, _I32, _I32, _VP, _VP],

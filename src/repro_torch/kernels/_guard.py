@@ -1,14 +1,16 @@
 """The forward-only guard of the kernel wrappers.
 
-A wrapper whose kernel has no backward (K1-K5, K7, K8's gate variant, K9)
-would hand autograd a tensor cut from the graph: ``loss.backward()`` would
-run and leave every weight before it without a gradient.  So such a
-wrapper raises instead, whenever grad mode is on and one of its inputs
-requires grad -- on the card, and on the CPU where a test forces the
-kernel route.  K6 and K8's plain and add variants are differentiable
-through ``flash_attention.ops.flash_attention`` and ``rmsnorm.ops.rmsnorm``
-/ ``add_rmsnorm`` (their backward kernels K10 and K11); their wrappers
-raise the same way when called directly.
+A wrapper whose kernel has no backward (K1-K5, K9) would hand autograd a
+tensor cut from the graph: ``loss.backward()`` would run and leave every
+weight before it without a gradient.  So such a wrapper raises instead,
+whenever grad mode is on and one of its inputs requires grad -- on the
+card, and on the CPU where a test forces the kernel route.  K6, K7 and
+K8 (all three variants) have backward kernels -- K10, K12 and K11 -- and
+autograd reaches each pair through its ``ops`` module
+(``flash_attention.ops.flash_attention``, ``ssd_scan.ops.ssd_scan``,
+``rmsnorm.ops.rmsnorm`` / ``add_rmsnorm`` / ``gated_rmsnorm``); their raw
+wrappers, and the backward wrappers themselves, raise the same way when
+called directly, naming that entry point.
 """
 from __future__ import annotations
 
@@ -36,7 +38,12 @@ def autograd_wants(*inputs) -> bool:
 def forbid_grad(kernel: str, *inputs, use: str = "") -> None:
     """Raise ``NotImplementedError`` where :func:`autograd_wants` the call.
     ``use`` names the differentiable entry point, where there is one."""
-    if autograd_wants(*inputs):
+    if not autograd_wants(*inputs):
+        return
+    if use:
         raise NotImplementedError(
-            f"{kernel} is a forward-only kernel: it has no backward "
-            f"kernel ({BACKWARD_ITEM})" + (f"; {use}" if use else ""))
+            f"{kernel} records no autograd graph when called directly; "
+            f"{use}")
+    raise NotImplementedError(
+        f"{kernel} is a forward-only kernel: it has no backward kernel "
+        f"({BACKWARD_ITEM})")

@@ -12,16 +12,19 @@ three variants, by the keyword given:
     dtype, y the SSD scan's float32 output (Mamba2's gated norm).
 On CUDA tensors it launches K8 and counts the launch (``launches``, and
 by variant in ``variants``); on CPU tensors it runs the plain version.
-K8 alone is forward-only: autograd reaches the plain and add variants
-through ``ops.rmsnorm`` / ``ops.add_rmsnorm``; the gate variant has no
-backward yet.
+K8 alone is forward-only: autograd reaches its variants through
+``ops.rmsnorm`` / ``ops.add_rmsnorm`` / ``ops.gated_rmsnorm``.
 
 ``rmsnorm_backward(g, w, dy, dh=None)`` is K11: (dx, dw) of the plain
 variant over g = x, or of the add variant over g = h with dh the gradient
 of h (dx = dr).  On CUDA tensors it launches K11 (two kernels -- the rows
 with their dw partials, then the partials' sum -- counted as one launch;
 ``variants`` counts "plain" and "add"), on CPU tensors it runs the
-closed-form plain version.
+closed-form plain version.  ``rmsnorm_backward_gate(y, z, w, dout)`` is
+its gate variant: (dy, dz, dw) of the gate variant's norm of
+y * silu(z), y fp32 and z, dout in the row dtype (z at any row stride);
+it counts in ``rmsnorm_backward.launches`` and, as "gate", in
+``rmsnorm_backward.variants``.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ import torch
 
 from .._build import launch, ptr
 from .._guard import forbid_grad
-from .ref import (add_rmsnorm_ref, gated_rmsnorm_ref, rmsnorm_backward_ref,
-                  rmsnorm_ref)
+from .ref import (add_rmsnorm_ref, gated_rmsnorm_backward_ref,
+                  gated_rmsnorm_ref, rmsnorm_backward_ref, rmsnorm_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"plain": 0, "add": 1, "gate": 2}
@@ -42,8 +45,8 @@ MAX_ROW_BYTES = 512 * 4 * 16
 def rmsnorm_2d(x, w, *, eps: float = 1e-5, residual=None, gate=None):
     forbid_grad("K8 rmsnorm_2d" + (" (gate variant)" if gate is not None
                                    else ""), x, w, residual, gate,
-                use="" if gate is not None else
-                "ops.rmsnorm and ops.add_rmsnorm are differentiable (K11)")
+                use="ops.rmsnorm, ops.add_rmsnorm and ops.gated_rmsnorm are "
+                    "differentiable (K11)")
     if x.dim() != 2 or w.dim() != 1 or w.shape[0] != x.shape[1]:
         raise ValueError("rmsnorm_2d takes x (R, D) and w (D,)")
     if residual is not None and gate is not None:
@@ -166,3 +169,50 @@ def rmsnorm_backward(g, w, dy, *, eps: float = 1e-5, dh=None,
 
 rmsnorm_backward.launches = 0
 rmsnorm_backward.variants = {}    # launches per variant
+
+
+def rmsnorm_backward_gate(y, z, w, dout, *, eps: float = 1e-5):
+    """K11's gate variant: (dy, dz, dw) of ``rmsnorm_2d(y, w, gate=z)``
+    for y (R, D) the scan's fp32 output, z and dout (R, D) in the row
+    dtype (z at any row stride, last dim contiguous)."""
+    forbid_grad("K11 rmsnorm_backward_gate", y, z, w, dout)
+    if y.dim() != 2 or w.dim() != 1 or w.shape[0] != y.shape[1]:
+        raise ValueError("rmsnorm_backward_gate takes y (R, D) and w (D,)")
+    for name, t in (("z", z), ("dout", dout)):
+        if t.shape != y.shape or t.device != y.device:
+            raise ValueError(f"{name} must be y's shape, on its device")
+    if dout.dtype != z.dtype or w.device != y.device:
+        raise ValueError("dout must be in z's dtype, w on y's device")
+    if y.device.type != "cuda":
+        return gated_rmsnorm_backward_ref(y, z, w, dout, eps)
+    if y.dtype != torch.float32:
+        raise TypeError("the gate variant takes the scan's float32 output")
+    if z.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError("the rmsnorm backward kernel takes float32 or "
+                        "bfloat16 rows and weights")
+    if any(t.stride(1) != 1 for t in (y, z, dout)) or not w.is_contiguous():
+        raise ValueError("the rmsnorm backward kernel needs a contiguous "
+                         "last dim")
+    r, d = y.shape
+    if bwd_threads(d) > 1024:
+        raise ValueError(f"rows of {d} values exceed what the rmsnorm "
+                         f"backward kernel holds (8192)")
+    dy = torch.empty((r, d), dtype=torch.float32, device=y.device)
+    dz = torch.empty((r, d), dtype=z.dtype, device=y.device)
+    dw = torch.empty_like(w)
+    if r == 0:
+        return dy, dz, dw.zero_()
+    n = bwd_ctas(r, d)
+    partial = torch.empty((n, d), dtype=torch.float32, device=y.device)
+    rows = (y, z, dout, dy, dz)
+    vec = int(d % (16 // z.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
+        for t in rows))
+    launch("tardis_rmsnorm_backward_gate", ptr(y), y.stride(0), ptr(z),
+           z.stride(0), ptr(dout), dout.stride(0), ptr(w), ptr(dy), d,
+           ptr(dz), d, ptr(partial), ptr(dw), r, d, n, float(eps),
+           _DTYPES[z.dtype], _DTYPES[w.dtype], vec)
+    rmsnorm_backward.launches += 1
+    rmsnorm_backward.variants["gate"] = \
+        rmsnorm_backward.variants.get("gate", 0) + 1
+    return dy, dz, dw

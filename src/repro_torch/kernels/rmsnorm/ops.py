@@ -6,20 +6,23 @@ the call (grad mode on and an operand that requires grad), each runs as a
 ``torch.autograd.Function`` whose forward launches K8 (plain / add
 variant) and whose backward launches K11 (``kernel.rmsnorm_backward``):
 the plain one saves x and w, the add one h and w, and its backward takes
-(dh, dy) to dx = dr = dh + dnorm(dy) and dw.  Otherwise each is K8's
-wrapper alone.  ``gated_rmsnorm`` (K8's gate variant) has no backward yet
-and raises under autograd (``kernels._guard``)."""
+(dh, dy) to dx = dr = dh + dnorm(dy) and dw.  ``gated_rmsnorm`` runs
+the same way through K8's gate variant and K11's
+(``kernel.rmsnorm_backward_gate``; it saves y, z and w, its backward
+gives dy, dz and dw).  Otherwise each is K8's wrapper
+alone."""
 from __future__ import annotations
 
 import torch
 
 from .._guard import autograd_wants
-from .kernel import rmsnorm_2d, rmsnorm_backward
-from .ref import (add_rmsnorm_ref, gated_rmsnorm_ref, rmsnorm_backward_ref,
-                  rmsnorm_ref)
+from .kernel import rmsnorm_2d, rmsnorm_backward, rmsnorm_backward_gate
+from .ref import (add_rmsnorm_ref, gated_rmsnorm_backward_ref,
+                  gated_rmsnorm_ref, rmsnorm_backward_ref, rmsnorm_ref)
 
 __all__ = ["rmsnorm", "add_rmsnorm", "gated_rmsnorm", "rmsnorm_ref",
-           "add_rmsnorm_ref", "gated_rmsnorm_ref", "rmsnorm_backward_ref"]
+           "add_rmsnorm_ref", "gated_rmsnorm_ref", "rmsnorm_backward_ref",
+           "gated_rmsnorm_backward_ref"]
 
 
 def _rows(t):
@@ -74,6 +77,25 @@ class _AddRMSNorm(torch.autograd.Function):
         return dx, dx, dw, None
 
 
+class _GatedRMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y, z, w, eps):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y, z, w)
+        ctx.eps = eps
+        return rmsnorm_2d(y, w, eps=eps, gate=z)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, w = ctx.saved_tensors
+        if dout is None:
+            return None, None, None, None
+        dy, dz, dw = rmsnorm_backward_gate(y, z, w, _grad_rows(dout),
+                                           eps=ctx.eps)
+        return dy, dz, dw, None
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     """x (..., D); w (D,)."""
     if autograd_wants(x, w):
@@ -95,4 +117,8 @@ def gated_rmsnorm(y, z, w, eps: float = 1e-5):
     """rmsnorm(y * silu(z)) * w in z's dtype, rounded as Mamba2's block
     rounds it: y (..., D) the scan's float32 output, z (..., D) the gate
     (any row stride, e.g. a column slice of the input projection)."""
-    return rmsnorm_2d(_rows(y), w, eps=eps, gate=_rows(z)).reshape(z.shape)
+    if autograd_wants(y, z, w):
+        out = _GatedRMSNorm.apply(_rows(y), _rows(z), w, eps)
+    else:
+        out = rmsnorm_2d(_rows(y), w, eps=eps, gate=_rows(z))
+    return out.reshape(z.shape)

@@ -48,3 +48,27 @@ def rmsnorm_backward_ref(g, w, dy, eps: float = 1e-5, dh=None):
         dx = dx + dh.float()
     dw = (dyf * xh).reshape(-1, g.shape[-1]).sum(dim=0)
     return dx.to(g.dtype), dw.to(w.dtype)
+
+
+def gated_rmsnorm_backward_ref(y, z, w, dout, eps: float = 1e-5):
+    """Plain version of K11's gate variant: the closed-form gradient of
+    :func:`gated_rmsnorm_ref` in fp32 (not autograd).  The normed row
+    u = round(round(y) * round(silu(z))) is recomputed in z's dtype; du is
+    :func:`rmsnorm_backward_ref`'s dx of u, kept in fp32; then
+    dy = du * silu(z) and dz = du * y * silu'(z), with silu'(z) =
+    sigmoid(z) (1 + z (1 - sigmoid(z))); dw as the plain variant's.
+    Returns (dy in y's dtype, dz in z's dtype, dw in w's dtype)."""
+    zt = z.dtype
+    zf = z.float()
+    sl = F.silu(zf).to(zt).float()
+    yr = y.to(zt).float()
+    u = (yr * sl).to(zt).float()
+    rstd = torch.rsqrt((u * u).mean(dim=-1, keepdim=True) + eps)
+    xh = u * rstd
+    gw = dout.float() * w.float()
+    du = rstd * (gw - xh * (gw * xh).mean(dim=-1, keepdim=True))
+    sig = torch.sigmoid(zf)
+    dy = (du * sl).to(y.dtype)
+    dz = (du * yr * sig * (1 + zf * (1 - sig))).to(zt)
+    dw = (dout.float() * xh).reshape(-1, z.shape[-1]).sum(dim=0)
+    return dy, dz, dw.to(w.dtype)

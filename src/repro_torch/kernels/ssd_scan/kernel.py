@@ -15,6 +15,16 @@ a build or launch failed): "mma", the tensor-core kernel for bf16 x, B and
 C (the serving path's conv views; its arithmetic is
 :func:`.ref.ssd_chunk_split_ref`), and "simt", the fp32 SIMT kernel for
 every other pair.
+
+``ssd_chunk_backward(x, dt, cum, B, C, dy, dS, chunk=...)`` is K12
+(``csrc/ssd_chunk_backward.cu``): the gradient of K7's outputs -- dy
+(b, nc, chunk, h, p) and dS (b, nc, h, p, n) -- as (dx, ddt, dcum, dB,
+dC), K7's inputs' gradients (dB and dC summed over the heads where one
+group serves them all).  It takes K7's inputs as K7 takes them.  On CUDA
+tensors it launches K12 (three kernels -- rows, columns, the finishing
+sums -- counted as one launch), on CPU tensors it runs the closed-form
+plain version (:func:`.ref.ssd_chunk_backward_ref`).  Autograd reaches
+the pair through ``ops.ssd_scan``.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ import torch
 
 from .._build import launch, ptr, sm_count
 from .._guard import forbid_grad
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_backward_ref, ssd_chunk_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
@@ -34,10 +44,9 @@ MMA_MAX_N = 128
 MMA_MAX_HEADS = 8
 
 
-def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
-    forbid_grad("K7 ssd_chunk", x, dt, cum, B, C)
+def _check(x, dt, cum, B, C, chunk):
+    """K7's and K12's shared checks of the operands' shapes and devices."""
     b, s, h, p = x.shape
-    n = B.shape[-1]
     nc = -(-s // chunk)
     if tuple(B.shape) != tuple(C.shape) or B.shape[:2] != (b, s) \
             or B.dim() not in (3, 4) or (B.dim() == 4 and B.shape[2] != h):
@@ -49,21 +58,35 @@ def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
                          f"{(b, nc, chunk, h)}")
     if any(t.device != x.device for t in (dt, cum, B, C)):
         raise ValueError("all operands must be on one device")
-    if x.device.type != "cuda":
-        return ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+
+
+def _check_cuda(x, dt, cum, B, C):
+    """K7's and K12's shared checks of dtypes and strides on the card."""
     if x.dtype not in _DTYPES or B.dtype not in _DTYPES \
             or C.dtype != B.dtype:
         raise TypeError("the ssd_chunk kernel takes x and B/C in float32 or "
                         "bfloat16 (B and C in one dtype)")
     if dt.dtype != torch.float32 or cum.dtype != torch.float32:
         raise TypeError("dt and cum must be float32")
-    if chunk > MAX_CHUNK or n > MAX_STATE:
-        raise ValueError(f"the ssd_chunk kernel takes chunk <= {MAX_CHUNK} "
-                         f"and state <= {MAX_STATE}")
     if x.stride(3) != 1 or B.stride() != C.stride() or B.stride(-1) != 1 \
             or dt.stride(2) != 1 or not cum.is_contiguous():
         raise ValueError("ssd_chunk needs contiguous last dims, B and C at "
                          "equal strides and a contiguous cum")
+
+
+def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
+    forbid_grad("K7 ssd_chunk", x, dt, cum, B, C,
+                use="ops.ssd_scan is differentiable (K12)")
+    _check(x, dt, cum, B, C, chunk)
+    if x.device.type != "cuda":
+        return ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    _check_cuda(x, dt, cum, B, C)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    if chunk > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"the ssd_chunk kernel takes chunk <= {MAX_CHUNK} "
+                         f"and state <= {MAX_STATE}")
     bsh = 0 if B.dim() == 3 else B.stride(2)
     strides = (*x.stride()[:3], B.stride(0), B.stride(1), bsh)
     variant = ssd_variant(x.dtype, B.dtype, chunk, p, n, strides,
@@ -85,6 +108,63 @@ def ssd_chunk(x, dt, cum, B, C, *, chunk: int):
 
 ssd_chunk.launches = 0
 ssd_chunk.variants = {}    # launches per variant
+
+# K12 holds a 64-row tile's p and n columns in registers: two 64-wide
+# slices at most
+BWD_MAX_PN = 128
+
+
+def ssd_chunk_backward(x, dt, cum, B, C, dy, dS, *, chunk: int):
+    forbid_grad("K12 ssd_chunk_backward", x, dt, cum, B, C, dy, dS)
+    _check(x, dt, cum, B, C, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    if tuple(dy.shape) != (b, nc, chunk, h, p) \
+            or tuple(dS.shape) != (b, nc, h, p, n):
+        raise ValueError("dy must be (b, nc, chunk, h, p) and dS "
+                         "(b, nc, h, p, n)")
+    if any(t.device != x.device for t in (dy, dS)):
+        raise ValueError("all operands must be on one device")
+    if x.device.type != "cuda":
+        return ssd_chunk_backward_ref(x, dt, cum, B, C, dy, dS, chunk=chunk)
+    _check_cuda(x, dt, cum, B, C)
+    if chunk > MAX_CHUNK or p > BWD_MAX_PN or n > BWD_MAX_PN:
+        raise ValueError(f"the ssd_chunk backward kernel takes chunk <= "
+                         f"{MAX_CHUNK}, p and n <= {BWD_MAX_PN}")
+    return _backward_launch(x, dt, cum, B, C, dy.float().contiguous(),
+                            dS.float().contiguous(), chunk)
+
+
+def _backward_launch(x, dt, cum, B, C, dy, dS, chunk):
+    """Allocate K12's scratch and outputs on x's device and launch it."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    shared = B.dim() == 3
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dcum_row = torch.empty((b, nc, chunk, h), **f32)
+    dcum_col = torch.empty_like(dcum_row)
+    elast = torch.empty((b, nc, h, -(-chunk // 64)), **f32)
+    dc_head = torch.empty((b, s, h, n), **f32)
+    db_head = torch.empty_like(dc_head)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, s, h), **f32)
+    dcum = torch.empty_like(dcum_row)
+    dB = torch.empty(B.shape, dtype=B.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    bsh = 0 if shared else B.stride(2)
+    launch("tardis_ssd_chunk_backward", ptr(x), *x.stride()[:3], ptr(dt),
+           *dt.stride()[:2], ptr(cum), ptr(B), ptr(C), B.stride(0),
+           B.stride(1), bsh, ptr(dy), ptr(dS), b, s, nc, chunk, h, p, n,
+           int(shared), _DTYPES[x.dtype], _DTYPES[B.dtype], ptr(dcum_row),
+           ptr(dcum_col), ptr(elast), ptr(dc_head), ptr(db_head), ptr(dx),
+           ptr(ddt), ptr(dcum), ptr(dB), ptr(dC))
+    ssd_chunk_backward.launches += 1
+    return dx, ddt, dcum, dB, dC
+
+
+ssd_chunk_backward.launches = 0
 
 
 def ssd_variant(x_dtype, bc_dtype, chunk: int, p: int, n: int, strides,

@@ -28,7 +28,9 @@ def ssd_intra_chunk_ref(C, B, xdt, cum):
     cb = torch.matmul(c, b.transpose(1, 2))                   # (G, Q, Q)
     seg = cum - cum.transpose(1, 2)                           # cum_i - cum_j
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=c.device))
-    L = torch.where(tri, torch.exp(seg), torch.zeros((), device=c.device))
+    # exp only where i >= j: past the diagonal seg can overflow
+    L = torch.exp(torch.where(tri, seg,
+                              torch.full((), -torch.inf, device=c.device)))
     y = torch.matmul(cb * L, x)
     decay_end = torch.exp(cum[:, -1:] - cum)                  # (G, Q, 1)
     S = torch.matmul(b.transpose(1, 2), x * decay_end)        # (G, N, P)
@@ -129,3 +131,68 @@ def ssd_chunk_split_ref(x, dt, cum, B, C, *, chunk: int):
     y = y.reshape(b, nc, h, chunk, p).permute(0, 1, 3, 2, 4)
     S = S.reshape(b, nc, h, n, p).transpose(-1, -2)
     return y, S
+
+
+def ssd_chunk_backward_ref(x, dt, cum, B, C, dy, dS, *, chunk: int):
+    """Plain version of the SSD intra-chunk backward kernel K12: the
+    closed-form gradient of :func:`ssd_chunk_ref` in fp32 (not autograd).
+    ``dy`` (b, nc, chunk, h, p) and ``dS`` (b, nc, h, p, n) are the
+    gradients of y_intra and of the chunk states.  Per (batch, chunk,
+    head), with xdt = x dt, L_ij = exp(cum_i - cum_j) for i >= j (else 0),
+    M = (C B^T) o L and e_j = exp(cum_last - cum_j):
+      dxdt = M^T dy + e o (B dS^T);  dM = (dy xdt^T) masked to i >= j;
+      dC = (dM o L) B;  dB = (dM o L)^T C + e o (xdt dS);
+      dcum_i += sum_j (dM o M)_ij, dcum_j -= the same column sum, and the
+      e terms de_j = xdt_j . (B dS^T)_j: dcum_last += sum_j de_j e_j,
+      dcum_j -= de_j e_j.
+    Returns (dx in x's dtype, ddt fp32, dcum fp32 (b, nc, chunk, h), dB
+    and dC in B's dtype and shape -- summed over the heads where one
+    group (b, s, n) serves them all); positions past s are padding and
+    their gradients are dropped (dcum keeps every position)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    pad = nc * chunk - s
+    shared = B.dim() == 3
+    Bh = B[:, :, None].expand(b, s, h, n) if shared else B
+    Ch = C[:, :, None].expand(b, s, h, n) if shared else C
+
+    def fold(a):                            # (b, nc*q, h, k) -> (G, q, k)
+        a = F.pad(a.float(), (0, 0, 0, 0, 0, nc * chunk - a.shape[1]))
+        return a.reshape(b, nc, chunk, h, a.shape[-1]).permute(
+            0, 1, 3, 2, 4).reshape(b * nc * h, chunk, a.shape[-1])
+
+    def unfold(a):                          # (G, q, k) -> (b, s, h, k)
+        k = a.shape[-1]
+        return a.reshape(b, nc, h, chunk, k).permute(0, 1, 3, 2, 4).reshape(
+            b, nc * chunk, h, k)[:, :s]
+
+    xf, dtf, Bf, Cf = fold(x), fold(dt[..., None]), fold(Bh), fold(Ch)
+    cumf = cum.float().permute(0, 1, 3, 2).reshape(b * nc * h, chunk, 1)
+    dyf = dy.float().permute(0, 1, 3, 2, 4).reshape(b * nc * h, chunk, p)
+    dSf = dS.float().reshape(b * nc * h, p, n)
+    xdt = xf * dtf
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    zero = torch.zeros((), device=x.device)
+    L = torch.exp(torch.where(tri, cumf - cumf.transpose(1, 2),
+                              torch.full((), -torch.inf, device=x.device)))
+    M = torch.matmul(Cf, Bf.transpose(1, 2)) * L              # (G, Q, Q)
+    e = torch.exp(cumf[:, -1:] - cumf)                        # (G, Q, 1)
+    BdS = torch.matmul(Bf, dSf.transpose(1, 2))               # (G, Q, P)
+    dxdt = torch.matmul(M.transpose(1, 2), dyf) + e * BdS
+    dM = torch.where(tri, torch.matmul(dyf, xdt.transpose(1, 2)), zero)
+    dcb = dM * L
+    dC = torch.matmul(dcb, Bf)
+    dB = torch.matmul(dcb.transpose(1, 2), Cf) + e * torch.matmul(xdt, dSf)
+    dL = dM * M
+    dee = (xdt * BdS).sum(-1) * e[..., 0]                     # (G, Q)
+    dcum = dL.sum(2) - dL.sum(1) - dee
+    dcum[:, -1] += dee.sum(1)
+    dx = unfold(dxdt * dtf).to(x.dtype)
+    ddt = unfold((dxdt * xf).sum(-1, keepdim=True))[..., 0]
+    dcum = dcum.reshape(b, nc, h, chunk).permute(0, 1, 3, 2)
+    dB, dC = unfold(dB), unfold(dC)
+    if shared:
+        dB, dC = dB.sum(2), dC.sum(2)
+    return dx, ddt, dcum.contiguous(), dB.to(B.dtype), dC.to(C.dtype)

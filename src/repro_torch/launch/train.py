@@ -4,9 +4,10 @@
 Runs the reduced config of the architecture with random fp32 weights from
 ``--seed`` through the fault-tolerant loop (config -> params -> step ->
 ``runtime.train``) and prints a line every ``log_every`` steps.  Runs on
-the card unless ``--device cpu``; on the card the dense, vlm and moe
-families train through K6 / K10 and K8 / K11 (the ssm and hybrid families
-raise there: their forward kernels have no backward yet).
+the card unless ``--device cpu``; on the card every family trains
+through the kernels and their backward kernels: attention through K6 /
+K10, the norms through K8 / K11 (plain, add and, for the ssm and hybrid
+families, Mamba2's gated norm), the SSD scan through K7 / K12.
 """
 import argparse
 

@@ -52,10 +52,19 @@ def gated_rmsnorm(y, z, w, eps: float = 1e-5):
     return gated_rmsnorm_ref(y, z, w, eps)
 
 
+class MetaGenerator:
+    """A stand-in generator on the meta device: ``init_params`` given one
+    builds the parameter tree's shapes and dtypes and allocates nothing
+    (``transformer.abstract_params``)."""
+    device = torch.device("meta")
+
+
 def dense_init(generator: torch.Generator, shape, dtype,
                scale: Optional[float] = None):
     """N(0, 1) * scale (default fan_in ** -0.5), drawn on the generator's
-    device in fp32 and cast."""
+    device in fp32 and cast (on the meta device: an empty tensor)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -100,9 +109,8 @@ def apply_rope(x, positions, theta: float, mrope: bool = False):
                 *positions.shape, 3)
         nf = freqs.shape[0]
         sec = [nf - 2 * (nf // 3), nf // 3, nf // 3]
-        sel = torch.repeat_interleave(
-            torch.arange(3, device=x.device),
-            torch.tensor(sec, device=x.device))
+        sel = torch.tensor([i for i, n in enumerate(sec) for _ in range(n)],
+                           device=x.device)     # section of each frequency
         pos = torch.gather(positions.float(), -1,
                            sel.expand(*positions.shape[:-1], nf))
         angles = pos * freqs

@@ -25,6 +25,8 @@ def expert_init(generator: torch.Generator, shape, dtype):
     expert count."""
     scale = shape[0] ** -0.5
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         out[i] = torch.randn(shape[1:], generator=generator,
                              dtype=torch.float32,

@@ -100,8 +100,10 @@ def ssd_chunked_plain(x, dt, A, B, C, D, chunk: int):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b,nc,i,j,h)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                    torch.zeros((), device=x.device))
+    # exp only where i >= j (as K7 / K12 evaluate it): past the diagonal
+    # seg can overflow, and autograd through where() would take 0 * inf
+    L = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                              torch.full((), -torch.inf, device=x.device)))
     del seg
 
     xdt = xc.float() * dtc[..., None]               # (b,nc,q,h,p)

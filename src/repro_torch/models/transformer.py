@@ -281,6 +281,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    """The parameter tree as meta tensors -- the shapes and dtypes
+    :func:`init_params` gives, nothing allocated (the dry run's stand-in,
+    the JAX package's ``jax.eval_shape`` of ``init_params``)."""
+    from .layers import MetaGenerator
+    return init_params(cfg, MetaGenerator(), dtype)
+
+
 def _embed(cfg, p, batch):
     x = p["embed"][batch["tokens"].long()]
     if cfg.family == "vlm" and "vision_embeds" in batch:
@@ -409,11 +417,9 @@ def _encdec_forward(cfg, p, batch):
 
 def loss_fn(cfg: ArchConfig, p: Params, batch) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` (labels of -1 are
-    masked).  Differentiable on the CPU (plain code) and, for the dense,
-    vlm, moe and encdec families, on the card: K6 and K8 (plain, add) carry
-    their backward kernels K10 and K11.  The ssm and hybrid families raise on
-    the card under autograd (K7 and K8's gate variant are forward-only).
-    The JAX package rematerializes each layer (``jax.checkpoint``) to save
+    masked).  Differentiable on the CPU (plain code) and, for every
+    family, on the card: K6, K7 and K8 (plain, add, gate) carry their
+    backward kernels K10, K12 and K11.  The JAX package rematerializes each layer (``jax.checkpoint``) to save
     memory; the port keeps the layers' activations (the chunked loss is
     the one checkpointed part)."""
     hidden = forward(cfg, p, batch)

@@ -7,7 +7,11 @@ and the learning rate is an fp32 tensor.  ``torch.optim.AdamW`` is not
 this optimizer: it keeps its moments in the parameter's dtype and applies
 the weight decay before the Adam step.  The update is functional: it
 returns new tensors and leaves its inputs as they were (the elastic
-trainer publishes each version and keeps older ones leased).
+trainer publishes each version and keeps older ones leased) -- unless the
+caller donates them (``donate=True``, the JAX trainer's
+``donate_argnums``): then the parameters and moments are written in place,
+a leaf at a time, with the same arithmetic, so a step holds one copy of
+the training state instead of two.
 """
 from __future__ import annotations
 
@@ -28,6 +32,16 @@ def init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_init(params) -> Dict[str, Any]:
+    """The optimizer state of ``params`` as meta tensors: the shapes and
+    dtypes :func:`init` gives, nothing allocated."""
+    def zeros(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def global_norm(tree) -> torch.Tensor:
     sq = sum(torch.sum(torch.square(g.float())) for g in leaves(tree))
     return torch.sqrt(sq)
@@ -41,15 +55,21 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def update(params, grads, state, *, lr, b1: float = 0.9, b2: float = 0.95,
            eps: float = 1e-8, weight_decay: float = 0.1,
-           max_grad_norm: float = 1.0):
-    """Returns (new_params, new_state, metrics)."""
-    grads32, gnorm = clip_by_global_norm(grads, max_grad_norm)
+           max_grad_norm: float = 1.0, donate: bool = False):
+    """Returns (new_params, new_state, metrics).  With ``donate`` the
+    returned trees are ``params`` and ``state``'s moments, each leaf
+    written in place as soon as it is computed (only one leaf's
+    temporaries alive at a time); the numbers are the same."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(max_grad_norm / torch.clamp_min(gnorm, 1e-9),
+                            1.0)
     step = state["step"] + 1
     bc1 = 1.0 - b1 ** step.float()
     bc2 = 1.0 - b2 ** step.float()
     lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
 
     def upd(p, g, m, v):
+        g = g.float() * scale                   # clip_by_global_norm's
         m2 = b1 * m + (1 - b1) * g
         v2 = b2 * v + (1 - b2) * g * g
         mh = m2 / bc1
@@ -58,13 +78,21 @@ def update(params, grads, state, *, lr, b1: float = 0.9, b2: float = 0.95,
         p2 = p.float() - lr * delta
         return p2.to(p.dtype), m2, v2
 
-    flat = tree_map(upd, params, grads32, state["m"], state["v"])
+    metrics = {"grad_norm": gnorm}
+    if donate:
+        with torch.no_grad():
+            for p, g, m, v in zip(leaves(params), leaves(grads),
+                                  leaves(state["m"]), leaves(state["v"])):
+                for old, new in zip((p, m, v), upd(p, g, m, v)):
+                    old.copy_(new)
+        return params, {"m": state["m"], "v": state["v"], "step": step}, \
+            metrics
+    flat = tree_map(upd, params, grads, state["m"], state["v"])
 
     def part(i):
         return tree_map(lambda _p, t: t[i], params, flat)
 
-    return part(0), {"m": part(1), "v": part(2), "step": step}, \
-        {"grad_norm": gnorm}
+    return part(0), {"m": part(1), "v": part(2), "step": step}, metrics
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):

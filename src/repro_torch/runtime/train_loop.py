@@ -53,7 +53,10 @@ class TrainConfig:
 
 def build_step(cfg_model, tc: TrainConfig):
     """step_fn(params, opt_state, residual, batch) -> (params, opt_state,
-    residual, metrics), the JAX package's jitted step."""
+    residual, metrics), the JAX package's jitted step.  Like it (its
+    ``donate_argnums``), the step takes params and opt_state over: AdamW
+    writes them in place, so a caller passes tensors it does not read
+    again."""
     lr_fn = adamw.cosine_schedule(tc.base_lr, tc.warmup, tc.steps)
 
     def step_fn(params, opt_state, residual, batch):
@@ -65,7 +68,7 @@ def build_step(cfg_model, tc: TrainConfig):
             grads = decompress_grads(qs)     # what crosses the DP axis
         lr = lr_fn(opt_state["step"] + 1)
         params, opt_state, metrics = adamw.update(
-            params, grads, opt_state, lr=lr)
+            params, grads, opt_state, lr=lr, donate=True)
         metrics["loss"] = loss
         metrics["lr"] = lr
         return params, opt_state, residual, metrics
@@ -80,7 +83,8 @@ def train(cfg_model, params, tc: TrainConfig,
     """Runs the loop; returns summary {losses, restarts, stragglers,
     final_step, params, opt_state}."""
     dev = pick_device(device)
-    params = tree_map(lambda t: t.detach().to(dev), params)
+    # a copy: the steps update it in place
+    params = tree_map(lambda t: t.detach().to(dev, copy=True), params)
     opt_state = adamw.init(params)
     residual = init_residual(params) if tc.grad_compression else None
     step_fn = build_step(cfg_model, tc)

@@ -26,8 +26,9 @@ Held, each with its tolerance:
     step's loss (replays included) within 2e-4 of JAX's run;
   * the train CLI at ``--device cpu``; the forward-only guard: with the
     kernel route forced on the CPU, every forward-only wrapper raises
-    ``NotImplementedError`` when an input requires grad, and so do the
-    ssm / hybrid losses there.
+    ``NotImplementedError`` when an input requires grad; the ssm / hybrid
+    losses there train through K7 / K12 and K8 / K11's gate variant and
+    equal JAX's.
 """
 import functools
 import tempfile
@@ -61,6 +62,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import kernel as RK
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.ssd_scan import kernel as SK
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.tardis_lease import kernel as LK
 from repro_torch.launch import train as train_cli
 from repro_torch.models import attention, chunked_xent, layers, loss_fn, ssm
@@ -173,14 +175,37 @@ def test_loss_and_grads_through_the_kernel_route_match_jax(kernel_route):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_forward_only_kernels_raise_under_autograd(kernel_route, family):
-    """On the kernel route, K7 and K8's gate variant refuse a graph: no
-    tensor cut from autograd reaches ``backward``."""
-    cfg, tcfg, _params, tparams = _model(family)
-    batch = _t(_batch(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        value_and_grad(lambda p, b: loss_fn(tcfg, p, b), tparams, batch)
-    with torch.no_grad():                   # no graph: the kernels serve
-        assert torch.isfinite(loss_fn(tcfg, tparams, batch))
+    """On the kernel route the ssm and hybrid families train: K7 and K8's
+    gate variant run as ``torch.autograd.Function``s whose backward is K12
+    and K11's gate variant (their plain versions on the CPU).  The loss
+    and every gradient leaf equal ``jax.value_and_grad``'s, and each
+    backward wrapper runs once a Mamba2 layer.  (The name is kept from
+    when these two families raised here.)"""
+    cfg, tcfg, params, tparams = _model(family)
+    batch = _batch(cfg, s=40)
+    calls = {"ssd": 0, "gate": 0}
+    sb, nb = ssd_ops.ssd_chunk_backward, norm_ops.rmsnorm_backward_gate
+
+    def ssd_count(*a, **k):
+        calls["ssd"] += 1
+        return sb(*a, **k)
+
+    def norm_count(*a, **k):
+        calls["gate"] += 1
+        return nb(*a, **k)
+
+    ssd_ops.ssd_chunk_backward = ssd_count
+    norm_ops.rmsnorm_backward_gate = norm_count
+    try:
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda p: j_loss_fn(cfg, p, batch)))(params)
+        tl, tg = value_and_grad(lambda p, b: loss_fn(tcfg, p, b), tparams,
+                                _t(batch))
+    finally:
+        ssd_ops.ssd_chunk_backward, norm_ops.rmsnorm_backward_gate = sb, nb
+    assert calls == {"ssd": cfg.n_layers, "gate": cfg.n_layers}
+    np.testing.assert_allclose(float(tl), float(jl), **LOSS)
+    _hold_grads(tg, jg)
 
 
 def _forward_only_calls():
