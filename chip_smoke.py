@@ -129,11 +129,14 @@ The ssm and hybrid families train on the card too: phase 2 holds K12 (the
 SSD chunk backward) and K11's gate variant against their plain versions
 at zamba2's (2 x 1024 tokens, 80 heads, P = N = 64, Q 256, B / C shared)
 and mamba2's (8 x 1024, 24 heads, N 128) training shapes in fp32 (2e-4,
-two calls bit-identical), with K7's fp32 forward at zamba2's; phase 3
+two calls bit-identical), with K7's fp32 forward at both (both kernels on
+their tf32x3 variants, the parent's SIMT kernels timed beside them against
+the same bound); phase 3
 runs ``runtime.train`` on full-width, full-depth zamba2-2.7b (4 steps of
 2 x 1024 tokens) and mamba2-130m (3 steps of 8 x 1024) with the launches
-per step held (zamba2: K7 / K12 54, K8 / K11 73 -- 54 gate + 19 add --
-and K6 / K10 9), every zamba2 gradient finite and non-zero and a warm
+per step held (zamba2: K7 / K12 54, all "tf32x3", K8 / K11 73 -- 54 gate
++ 19 add -- and K6 / K10 9), every zamba2 gradient finite and non-zero and
+a warm
 step profiled; phase 4 holds zamba2 at full width and 6 layers card
 against CPU (the tinyllama lane's tolerances) and runs the train CLI for
 both families on the card; then, on a one-rank NCCL group, the device
@@ -150,8 +153,8 @@ kimi-k2's attention (64 / 8 heads, Dh 112) and a cold 64-token kimi
 prompt --, K7 (the SSD intra-chunk
 scan) at zamba2's (b 4, 12 chunks of 256, 80 heads, N = P = 64; bf16
 inputs on its tensor-core variant, bound by its bytes or its three-part
-bf16 products at 989 TFLOP/s; fp32 inputs on its SIMT variant, timed
-beside its fp32 bound), K8 (RMSNorm) in each of its variants (plain; add:
+bf16 products at 989 TFLOP/s; fp32 inputs on its tf32x3 variant, timed
+beside its bound), K8 (RMSNorm) in each of its variants (plain; add:
 the residual add fused in, h equal to the eager add bit for bit; gate:
 Mamba2's rmsnorm(y * silu(z))) at the prefill rows (4 x 3072) of
 tinyllama's norms and zamba2's, and at decode's rows, every (row, w)
@@ -410,12 +413,13 @@ def phase1_card_and_build():
         f"{time.perf_counter() - t0:.1f} s")
     profiler_sees_library()
     # K6's bf16 variant must issue wgmma (HGMMA in the library's SASS),
-    # K4's and K7's tensor-core variants mma.sync (HMMA)
+    # K4's, K7's and K12's tensor-core variants mma.sync (HMMA)
     n_hgmma = sum(sass_counts(lib, "HGMMA").values())
     log(f"cuobjdump -sass {lib.name}: {n_hgmma} HGMMA instructions")
     assert n_hgmma, "no HGMMA in the kernel library: K6 issues no wgmma"
     hmma = sass_counts(lib, "HMMA")
-    for kernel in ("paged_decode_mma", "ssd_chunk_mma"):
+    for kernel in ("paged_decode_mma", "ssd_chunk_mma", "ssd_chunk_tf32",
+                   "ssd_bwd_tf32"):
         found = {f: n for f, n in hmma.items() if kernel in f}
         log(f"  HMMA in {kernel}: {len(found)} instances, "
             f"{sorted(found.values())} instructions")
@@ -918,7 +922,7 @@ def phase2_prefill_kernels(rows):
             + 2 * b * nc * h * chunk * p)
     errs = {}
     for tag, dtype, want_variant in (("bf16", b16, "mma"),
-                                     ("fp32", f32, "simt")):
+                                     ("fp32", f32, "tf32x3")):
         conv = conv32.to(dtype)
         xs = conv[..., :h * p].reshape(b, s, h, p)
         bs, cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
@@ -931,15 +935,16 @@ def phase2_prefill_kernels(rows):
         errs[tag] = max(max_err(y, wy), max_err(st, wst))
         del y, st, wy, wst
         if dtype == f32:
-            # the fp32 pair runs the SIMT variant: its time and fp32 bound
+            # the fp32 pair runs the tf32x3 variant: its time and bound
+            # (its products as three TF32 products)
             ms = graph_ms(lambda: SK.ssd_chunk(xs, dt, cum, bs, cs,
                                                chunk=chunk), 5)
-            log(f"  ssd_chunk fp32 (SIMT variant): {ms * 1e3:.2f} us, bound "
-                f"{bound(0, nops)[0] * 1e3:.3f} us (operations at 67 TFLOP/s "
-                f"fp32)")
+            log(f"  ssd_chunk fp32 (tf32x3 variant): {ms * 1e3:.2f} us, "
+                f"bound {bound(0, 3 * nops, TF32_TC_FLOPS)[0] * 1e3:.3f} us "
+                f"(operations as three TF32 products at 495 TFLOP/s)")
         del conv, xs, bs, cs
-    log(f"K7 ssd_chunk max |err|: {errs} (bf16: tensor-core variant; fp32: "
-        f"SIMT)")
+    log(f"K7 ssd_chunk max |err|: {errs} (bf16: the mma variant; fp32: "
+        f"tf32x3)")
     conv = conv32.to(b16)
     xs = conv[..., :h * p].reshape(b, s, h, p)
     bs, cs = conv[..., h * p:h * p + n], conv[..., h * p + n:]
@@ -3835,7 +3840,13 @@ def phase2_ssm_backward_kernels(rows):
     fp32 within 2e-4 of each output's largest value, two calls
     bit-identical; each row's device time (graph replay), eager call,
     plain version, bound and launches (on its family's training path).
-    K7's fp32 SIMT forward gets a row at zamba2's training shape."""
+    K7's fp32 forward (its tf32x3 variant) gets a row at each training
+    shape, within 2e-4 of its plain version, two calls bit-identical.
+    Beside K12 and K7 the parent's kernels -- their SIMT variants, still
+    in the library -- are timed on the same inputs and read against the
+    same bound.  Returns those two kernels' summary lines (device us,
+    share of the bound, the parent's kernels, plain us, error) for the end
+    of the log."""
     import torch
     from repro_torch.kernels.rmsnorm import kernel as RK
     from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_backward_ref
@@ -3859,80 +3870,119 @@ def phase2_ssm_backward_kernels(rows):
             assert err <= FP32["atol"] * scale, (name, i, err, scale)
         return max(max_err(a.float(), w.float()) for a, w in zip(got, want))
 
+    summary = []
+
+    def read(what, ms, bound_ms, by, plain_ms, err, parent_ms):
+        """One summary line: device us, share of the bound, the parent's."""
+        line = (f"{what}: {ms * 1e3:.2f} us, {bound_ms / ms:.1%} of its "
+                f"bound {bound_ms * 1e3:.3f} us ({by}); the parent's SIMT "
+                f"kernels {parent_ms * 1e3:.2f} us ({bound_ms / parent_ms:.1%} "
+                f"of the same bound); plain {plain_ms * 1e3:.2f} us; max "
+                f"|err| {err:.3e}")
+        log(line)
+        summary.append(line)
+
     for name, path, b, s, h, p, n in K12_ROWS:
         xs, dt, cum, bs, cs, dy, dS, chunk = _ssd_train_inputs(g, b, s, h, p,
                                                                n)
         nc, q = cum.shape[1], chunk
         tri = q * (q + 1) // 2
         args = (xs, dt, cum, bs, cs, dy, dS)
-        err = held(name, SK.ssd_chunk_backward(*args, chunk=chunk),
-                   SK.ssd_chunk_backward(*args, chunk=chunk),
-                   ssd_chunk_backward_ref(*args, chunk=chunk))
-        # operations (multiply-adds as 2): C.B once a chunk (the heads
-        # share B and C), then per (chunk, head) over the lower triangle dM
-        # (p), dC and dB (n each) and dxdt (p), and the state terms B dS^T
-        # and xdt dS (q p n each) -- products at fp32 accuracy, bound as
-        # three TF32 products at 495 TFLOP/s (K6's and K10's yardstick),
-        # the fp32 SIMT bound at 67 beside it; bytes: x, B, C, dt, cum, dy
-        # and dS read once, dx, ddt, dcum, dB, dC written once
-        nops = (2 * b * nc * tri * n
-                + 2 * b * nc * h * (tri * (2 * p + 2 * n) + 2 * q * p * n))
+        got, variant = variant_of(
+            SK.ssd_chunk_backward,
+            lambda: SK.ssd_chunk_backward(*args, chunk=chunk))
+        assert variant == "tf32x3", f"K12 took {variant}"
+        want = ssd_chunk_backward_ref(*args, chunk=chunk)
+        err = held(name, got, SK.ssd_chunk_backward(*args, chunk=chunk),
+                   want)
+        # the parent's kernels (the SIMT variant) on the same inputs
+        held(name + " (simt)", SK._backward_launch(*args, chunk),
+             SK._backward_launch(*args, chunk), want)
+        del got, want
+        # operations (multiply-adds as 2), the least work of the closed
+        # form where one group serves every head: once a chunk over the
+        # lower triangle C.B^T and, after the heads' dcb are summed, dC =
+        # (sum dcb) B and dB's (sum dcb)^T C (n each); per (chunk, head)
+        # over the triangle dM and M^T dy (p each), and the state terms
+        # B dS^T and xdt dS (q p n each) -- at fp32 accuracy as three TF32
+        # products at 495 TFLOP/s (K6's and K10's yardstick), the fp32
+        # SIMT bound at 67 beside it; bytes: x, B, C, dt, cum, dy and dS
+        # read once, dx, ddt, dcum, dB, dC written once
+        nops = (2 * b * nc * tri * 3 * n
+                + 2 * b * nc * h * (tri * 2 * p + 2 * q * p * n))
         nbytes = 4 * (2 * b * s * h * p + 4 * b * s * n + 2 * b * s * h
                       + 2 * b * nc * q * h + b * nc * q * h * p
                       + b * nc * h * p * n)
         simt_b = bound(nbytes, nops)[0]
+        bound_ms, bound_by = bound(nbytes, 3 * nops, TF32_TC_FLOPS)
+        t = timings(lambda: SK.ssd_chunk_backward(*args, chunk=chunk),
+                    lambda: ssd_chunk_backward_ref(*args, chunk=chunk),
+                    iters=5, plain_iters=2)
+        parent_ms = graph_ms(lambda: SK._backward_launch(*args, chunk), 5)
         add(dict(
             name=name, wrapper="ssd_chunk_backward", path=path,
-            source="src/repro_torch/kernels/ssd_scan/csrc/"
-            "ssd_chunk_backward.cu",
+            variant="tf32x3", source="src/repro_torch/kernels/ssd_scan/"
+            "csrc/ssd_chunk_backward_tf32.cu",
             replaces="src/repro/kernels/ssd_scan/kernel.py:42 (its "
             "gradient: JAX differentiates ops.py's jnp path)",
             max_abs_err=err,
             shape=f"b={b} s={s} nc={nc} Q={q} heads={h} P={p} N={n} fp32, "
             f"B/C shared by the heads (bound: three TF32 products, fp32 "
-            f"SIMT {simt_b * 1e3:.3f} us)",
-            **timings(lambda: SK.ssd_chunk_backward(*args, chunk=chunk),
-                      lambda: ssd_chunk_backward_ref(*args, chunk=chunk),
-                      iters=5, plain_iters=2),
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound(nbytes, 3 * nops, TF32_TC_FLOPS)))))
-        if path == "zamba2_train":
-            # K7's fp32 SIMT forward at the same shape
-            (y, st), variant = variant_of(SK.ssd_chunk, lambda: SK.ssd_chunk(
-                xs, dt, cum, bs, cs, chunk=chunk))
-            assert variant == "simt", f"K7 fp32 took {variant}"
-            wy, wst = ssd_chunk_ref(xs, dt, cum, bs, cs, chunk=chunk)
-            torch.testing.assert_close(y, wy, **FP32)
-            torch.testing.assert_close(st, wst, **FP32)
-            ferr = max(max_err(y, wy), max_err(st, wst))
-            del y, st, wy, wst
-            # products C.B, M.xdt and B^T(e xdt) as three TF32 products
-            # each; the decay mask and e xdt (elementwise) at fp32's rate
-            fprod = (2 * b * nc * tri * n + 2 * b * nc * h * tri * p
-                     + 2 * b * nc * h * q * n * p)
-            fother = b * nc * h * tri + 2 * b * nc * h * q * p
-            fops = fprod + fother
-            fbytes = 4 * (b * s * h * p + 2 * b * s * n + b * s * h
-                          + b * nc * q * h + b * nc * q * h * p
-                          + b * nc * h * p * n)
-            fsimt_b = bound(fbytes, fops)[0]
-            add(dict(
-                name="ssd_chunk.train", wrapper="ssd_chunk", path=path,
-                source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
-                replaces="src/repro/kernels/ssd_scan/kernel.py:42",
-                max_abs_err=ferr, variant="simt",
-                shape=f"b={b} s={s} nc={nc} Q={q} heads={h} P={p} N={n} "
-                f"fp32 (the training forward; bound: three TF32 products, "
-                f"fp32 SIMT {fsimt_b * 1e3:.3f} us)",
-                **timings(lambda: SK.ssd_chunk(xs, dt, cum, bs, cs,
-                                               chunk=chunk),
-                          lambda: ssd_chunk_ref(xs, dt, cum, bs, cs,
-                                                chunk=chunk),
-                          iters=5, plain_iters=2),
-                **dict(zip(("bound_ms", "bound_by"), bound(
-                    fbytes, 3 * fprod + fother * TF32_TC_FLOPS / FP32_FLOPS,
-                    TF32_TC_FLOPS)))))
-        del xs, dt, cum, bs, cs, dy, dS, args
+            f"SIMT {simt_b * 1e3:.3f} us; the parent's SIMT kernels "
+            f"{parent_ms * 1e3:.2f} us)", **t,
+            bound_ms=bound_ms, bound_by=bound_by))
+        read(f"K12 {path} (tf32x3)", t["ms"], bound_ms, bound_by,
+             t["plain_ms"], err, parent_ms)
+
+        # K7's fp32 forward (tf32x3) at the same shape
+        call = lambda: SK.ssd_chunk(xs, dt, cum, bs, cs, chunk=chunk)
+        (y, st), variant = variant_of(SK.ssd_chunk, call)
+        assert variant == "tf32x3", f"K7 fp32 took {variant}"
+        y2, st2 = call()
+        assert torch.equal(y, y2) and torch.equal(st, st2), \
+            "K7 tf32x3: two calls differ"
+        wy, wst = ssd_chunk_ref(xs, dt, cum, bs, cs, chunk=chunk)
+        torch.testing.assert_close(y, wy, **FP32)
+        torch.testing.assert_close(st, wst, **FP32)
+        ferr = max(max_err(y, wy), max_err(st, wst))
+        py, pst = SK._forward_launch(xs, dt, cum, bs, cs, chunk, "simt")
+        torch.testing.assert_close(py, wy, **FP32)
+        torch.testing.assert_close(pst, wst, **FP32)
+        del y, st, y2, st2, wy, wst, py, pst
+        # products C.B (once a chunk: the heads share it), M.xdt and
+        # B^T(e xdt) as three TF32 products each; the decay mask and e xdt
+        # (elementwise) at fp32's rate
+        fprod = (2 * b * nc * tri * n + 2 * b * nc * h * tri * p
+                 + 2 * b * nc * h * q * n * p)
+        fother = b * nc * h * tri + 2 * b * nc * h * q * p
+        fops = fprod + fother
+        fbytes = 4 * (b * s * h * p + 2 * b * s * n + b * s * h
+                      + b * nc * q * h + b * nc * q * h * p
+                      + b * nc * h * p * n)
+        fsimt_b = bound(fbytes, fops)[0]
+        fbound_ms, fbound_by = bound(
+            fbytes, 3 * fprod + fother * TF32_TC_FLOPS / FP32_FLOPS,
+            TF32_TC_FLOPS)
+        ft = timings(call, lambda: ssd_chunk_ref(xs, dt, cum, bs, cs,
+                                                 chunk=chunk),
+                     iters=5, plain_iters=2)
+        fparent_ms = graph_ms(lambda: SK._forward_launch(
+            xs, dt, cum, bs, cs, chunk, "simt"), 5)
+        add(dict(
+            name="ssd_chunk.train" + ("" if path == "zamba2_train"
+                                      else "_mamba2"),
+            wrapper="ssd_chunk", path=path,
+            source="src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk_tf32.cu",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:42",
+            max_abs_err=ferr, variant="tf32x3",
+            shape=f"b={b} s={s} nc={nc} Q={q} heads={h} P={p} N={n} "
+            f"fp32 (the training forward; bound: three TF32 products, "
+            f"fp32 SIMT {fsimt_b * 1e3:.3f} us; the parent's SIMT kernel "
+            f"{fparent_ms * 1e3:.2f} us)", **ft,
+            bound_ms=fbound_ms, bound_by=fbound_by))
+        read(f"K7 fp32 {path} (tf32x3)", ft["ms"], fbound_ms, fbound_by,
+             ft["plain_ms"], ferr, fparent_ms)
+        del xs, dt, cum, bs, cs, dy, dS, args, call
         torch.cuda.empty_cache()
 
     for name, path, r, d, width in K11_GATE_ROWS:
@@ -3965,6 +4015,7 @@ def phase2_ssm_backward_kernels(rows):
         del y, proj, z, w, dout
         torch.cuda.empty_cache()
 
+    return summary
 
 def _ssm_launches_per_step(cfg):
     """{wrapper: launches a training step} of an ssm / hybrid config, and
@@ -3980,7 +4031,8 @@ def _ssm_launches_per_step(cfg):
     by_variant = {"rmsnorm": {"gate": cfg.n_layers, "add": norms - cfg.n_layers},
                   "rmsnorm_backward": {"gate": cfg.n_layers,
                                        "add": norms - cfg.n_layers},
-                  "ssd_chunk": {"simt": cfg.n_layers}}
+                  "ssd_chunk": {"tf32x3": cfg.n_layers},
+                  "ssd_chunk_backward": {"tf32x3": cfg.n_layers}}
     if n_attn:
         by_variant["flash_prefill"] = {"tf32x3": n_attn}
         by_variant["flash_backward"] = {"tf32x3": n_attn}
@@ -3995,7 +4047,8 @@ def phase3_ssm_train_path(smi, arch):
     shared attention); ms a warm step, tokens/s, peak memory; every
     parameter's gradient finite and non-zero after the run (zamba2);
     one warm step under ``torch.profiler`` (idle share, device ms by kind).
-    Returns (launch counts, launches by variant)."""
+    Returns (launch counts, launches by variant, a summary line: warm ms a
+    step, tokens/s)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
@@ -4035,6 +4088,10 @@ def phase3_ssm_train_path(smi, arch):
         f"{peak:.2f} GB, max_memory_reserved {reserved:.2f} GB")
     log(f"launches on the {arch} training path: {counts}")
     log(f"launches by variant on the {arch} training path: {variants}")
+    line = (f"training path ({arch}) on {smi}: warm "
+            f"{sum(warm) / len(warm) * 1e3:.3f} ms a step, "
+            f"{toks * len(warm) / sum(warm):.1f} tokens/s (steps "
+            f"{[round(t * 1e3, 3) for t in warm]} ms)")
     want, by_variant = _ssm_launches_per_step(cfg)
     for k in SSM_TRAIN_KERNELS:
         assert counts[k] == kw["steps"] * want[k], \
@@ -4088,7 +4145,7 @@ def phase3_ssm_train_path(smi, arch):
     del params, opt_state, batch, step_fn, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, variants
+    return counts, variants, line
 
 
 # Phase 4 of the zamba2 training lane: the card against the CPU at full
@@ -4284,7 +4341,7 @@ def main() -> int:
     phase2_dense_decode(rows)
     phase2_prefill_kernels(rows)
     phase2_backward_kernels(rows)
-    phase2_ssm_backward_kernels(rows)
+    summary = phase2_ssm_backward_kernels(rows)
     phase2_whisper_attention(rows)
     t_l2, t_smem = phase2_coherence_sim(rows)
     stamp("phase 2")
@@ -4304,8 +4361,10 @@ def main() -> int:
     stamp("phase 3 (training path)")
     ssm_train_counts = {}
     for arch in SSM_TRAIN:
-        ssm_train_counts[arch.split("-")[0] + "_train"] = \
-            phase3_ssm_train_path(smi, arch)
+        counts_a, variants_a, line = phase3_ssm_train_path(smi, arch)
+        ssm_train_counts[arch.split("-")[0] + "_train"] = (counts_a,
+                                                          variants_a)
+        summary.append(line)
         stamp(f"phase 3 (training path, {arch})")
     whisper_counts = phase3_whisper_serve(smi)
     stamp("phase 3 (whisper serving)")
@@ -4352,6 +4411,8 @@ def main() -> int:
         r.setdefault("variant", None)
         r.setdefault("unfused_ms", None)
         r.setdefault("floor_ms", None)
+    for line in summary:
+        log(f"summary: {line}")
     log(f"chip_smoke done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,10 @@ SIGNATURES = {
     "tardis_ssd_chunk_backward": ([_VP] + [_I64] * 3 + [_VP] + [_I64] * 2
                                   + [_VP] * 3 + [_I64] * 3 + [_VP] * 2
                                   + [_I32] * 10 + [_VP] * 10),
+    "tardis_ssd_chunk_backward_tf32": ([_VP] + [_I64] * 3 + [_VP]
+                                       + [_I64] * 2 + [_VP] * 3
+                                       + [_I64] * 3 + [_VP] * 2 + [_I32] * 11
+                                       + [_VP] * 10),
     "tardis_rmsnorm": ([_I32, _VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
                         _I64, _I32, _I32, _F32, _I32, _I32, _I32, _VP]),
     "tardis_flash_backward": ([_VP] * 11 + [_I32] * 6 + [_I64] * 6

@@ -1,4 +1,5 @@
-// Device helpers shared by the port's tensor-core kernels (K4-K7, K10):
+// Device helpers shared by the port's tensor-core kernels (K4-K7, K10,
+// K12):
 // asynchronous 16-byte copies, bf16 packing, mma.sync m16n8k16 and
 // ldmatrix, the 16-byte-chunk swizzle of shared-memory rows, quad
 // reductions, the three-part bf16 split of an fp32 operand, fp32 products
@@ -238,6 +239,42 @@ struct OpTf32 {
     mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
   }
 };
+
+// OpTf32 fragments of raw fp32 values, split: A's in load_a's register
+// order (rows grp, grp + 8 at k = tig, then at k = tig + 4), B's (k = tig,
+// k = tig + 4)
+__device__ __forceinline__ OpTf32::A tf32_a(float a0, float a1, float a2,
+                                            float a3) {
+  OpTf32::A a;
+  split_tf32(a0, a.hi[0], a.lo[0]);
+  split_tf32(a1, a.hi[1], a.lo[1]);
+  split_tf32(a2, a.hi[2], a.lo[2]);
+  split_tf32(a3, a.hi[3], a.lo[3]);
+  return a;
+}
+__device__ __forceinline__ OpTf32::B tf32_b(float b0, float b1) {
+  OpTf32::B b;
+  split_tf32(b0, b.hi[0], b.lo[0]);
+  split_tf32(b1, b.hi[1], b.lo[1]);
+  return b;
+}
+// d[t] += a . b[t] for the tiles t < live as three TF32 products each (K7's
+// and K12's tf32x3), the tiles' products issued in turns: lo.hi of each,
+// then hi.lo, then hi.hi -- OpTf32::mma's order per accumulator, with
+// independent mma.syncs between the dependent ones
+template <int NT>
+__device__ __forceinline__ void mma3(float (&d)[NT][4], const OpTf32::A& a,
+                                     const OpTf32::B (&b)[NT], int live) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    if (t < live) mma_tf32(d[t], a.lo, b[t].hi[0], b[t].hi[1]);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    if (t < live) mma_tf32(d[t], a.hi, b[t].lo[0], b[t].lo[1]);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    if (t < live) mma_tf32(d[t], a.hi, b[t].hi[0], b[t].hi[1]);
+}
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {

@@ -30,9 +30,10 @@
 // computes the chunk states S for its heads.
 //
 // Bound on the H100.  Per (chunk, head): ~q^2 (p + n) / 2 + q p n
-// multiply-adds over ~q (p + 2n) * 2 + q p * 4 bytes.  The fp32 pair (and
-// the mixed pairs) run the SIMT kernel below, bound by its fp32 operations
-// (no TF32: the fp32 tolerance is 2e-4); that first design lost ~8x to its
+// multiply-adds over ~q (p + 2n) * 2 + q p * 4 bytes.  The SIMT kernel
+// below takes the bf16-x / fp32-B/C pair and the widths and views neither
+// tensor-core variant takes; it is bound by its fp32 operations (no plain
+// TF32: the fp32 tolerance is 2e-4); that first design lost ~8x to its
 // bound: scalar staging with a bf16 convert and a dt multiply per element,
 // 2-3 barriers per 64-position tile, a CTA row that computed the chunk
 // states serially over 8 heads while the rows of y did triangular work,
@@ -60,6 +61,12 @@
 // * S: B_j * w_j in three bf16 parts times bf16 x, the work of 16 columns
 //   of n by 32 of p a warp, so the states balance across the warps too.
 // (ssd_chunk_split_ref in ref.py is this arithmetic in PyTorch.)
+//
+// The fp32-x pairs with p <= 64, n <= 128 (training's forward) run the
+// "tf32x3" variant of ssd_chunk_tf32.cu: its products on the tensor cores
+// as three TF32 products, C.B^T formed once per CTA for all its heads.
+// The SIMT kernel above is left for the shapes and views no tensor-core
+// variant takes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -539,28 +546,45 @@ int launch_mma(const void* x, long long xsb, long long xst, long long xsh,
 
 }  // namespace
 
+// the tf32x3 variant (ssd_chunk_tf32.cu)
+int tardis_ssd_chunk_tf32(const void* x, long long xsb, long long xst,
+                          long long xsh, const void* dt, long long dsb,
+                          long long dst, const void* cum, const void* B,
+                          const void* C, long long bsb, long long bst,
+                          long long bsh, int b, int s, int nc, int q, int h,
+                          int p, int n, int bc_dtype, int heads_per_cta,
+                          void* y, void* S, cudaStream_t stream);
+
 // dtype codes: 0 = float32, 1 = bfloat16.  x (b, s, h, p) at strides
 // (xsb, xst, xsh) in x_dtype; dt (b, s, h) fp32 at strides (dsb, dst, 1);
 // cum (b, nc, q, h) fp32 contiguous; B and C (b, s, [h,] n) at the shared
 // strides (bsb, bst, bsh) in bc_dtype, bsh = 0 when one group serves every
 // head; p and n contiguous.  y (b, nc, q, h, p) and S (b, nc, h, p, n) fp32
-// contiguous.  q <= 256, n <= 256.  tensor_cores picks the tensor-core
-// variant (the caller decides): x and B/C bf16, q a multiple of 16, p <= 64
-// and n <= 128 multiples of 8, x, B and C 16-byte aligned with strides in
-// multiples of 8 elements; it takes heads_per_cta heads a CTA.  Else the
-// SIMT variant (any dtype pair).
+// contiguous.  q <= 256, n <= 256.  variant (the caller decides): 0 the
+// SIMT kernel (any dtype pair); 1 the bf16 tensor-core kernel ("mma": x
+// and B/C bf16, q a multiple of 16, p <= 64 and n <= 128 multiples of 8,
+// x, B and C 16-byte aligned with strides in multiples of 8 elements); 2
+// "tf32x3" (fp32 x over fp32 or bf16 B/C, q a multiple of 16, p <= 64 and
+// n <= 128 multiples of 8, x 16-byte aligned with strides in multiples of
+// 4 elements).  The tensor-core variants take heads_per_cta heads a CTA.
 extern "C" int tardis_ssd_chunk(
     const void* x, long long xsb, long long xst, long long xsh,
     const void* dt, long long dsb, long long dst, const void* cum,
     const void* B, const void* C, long long bsb, long long bst,
     long long bsh, int b, int s, int nc, int q, int h, int p, int n,
-    int x_dtype, int bc_dtype, int tensor_cores, int heads_per_cta, void* y,
+    int x_dtype, int bc_dtype, int variant, int heads_per_cta, void* y,
     void* S, void* stream) {
   if (b == 0 || nc == 0 || h == 0 || p == 0) return (int)cudaGetLastError();
   if (q <= 0 || q > kMaxQ || n <= 0 || n > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (tensor_cores) {
+  if (variant == 2) {
+    if (x_dtype != 0) return (int)cudaErrorInvalidValue;
+    return tardis_ssd_chunk_tf32(x, xsb, xst, xsh, dt, dsb, dst, cum, B, C,
+                                 bsb, bst, bsh, b, s, nc, q, h, p, n,
+                                 bc_dtype, heads_per_cta, y, S, st);
+  }
+  if (variant == 1) {
     if (x_dtype != 1 || bc_dtype != 1 || q % 16 || p % 8 || p > kMmaP ||
         n % 8 || n > 128 || heads_per_cta <= 0)
       return (int)cudaErrorInvalidValue;

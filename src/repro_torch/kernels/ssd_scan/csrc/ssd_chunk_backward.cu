@@ -47,7 +47,11 @@
 // the e terms' q p n twice.
 //
 // The kernels live in include/ssd_chunk_backward.cuh; this source
-// instantiates them for an fp32 x and holds the C entry point.
+// instantiates them for an fp32 x and holds the C entry point.  They are
+// K12's "simt" variant: the chunk sizes and widths that the tensor-core
+// "tf32x3" variant (ssd_chunk_backward_tf32.cu) does not take
+// (kernel.ssd_backward_variant: it takes the chunk a multiple of 64, p <=
+// 64 and n <= 128 in multiples of 16).
 #include "ssd_chunk_backward.cuh"
 
 // K12 for a bf16 x (ssd_chunk_backward_bf16.cu)

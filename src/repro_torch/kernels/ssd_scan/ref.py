@@ -13,7 +13,11 @@ scan: ``models.ssm.ssd_chunked``'s plain code).
 arithmetic of K7's tensor-core variant on the same contracts, with x and
 dt apart: dt folded into the decayed matrix M' and into w * B, each of
 those split into three bf16 parts, each part times the bf16 x summed in
-fp32.
+fp32.  ``ssd_intra_chunk_tf32_ref`` / ``ssd_chunk_tf32_ref`` model K7's
+tf32x3 variant (every product as three TF32 products of a hi / lo split,
+:func:`tf32x3_matmul`), and ``ssd_chunk_backward_tf32_ref`` K12's: its
+products likewise, and, where one group of B / C serves every head, the
+heads' dcb summed before the n-wide products dC and dB.
 """
 from __future__ import annotations
 
@@ -112,6 +116,13 @@ def ssd_intra_chunk_split_ref(C, B, x, dt, cum):
 def ssd_chunk_split_ref(x, dt, cum, B, C, *, chunk: int):
     """:func:`ssd_chunk_ref` with the tensor-core arithmetic
     (:func:`ssd_intra_chunk_split_ref`): the same layouts and results."""
+    return _on_chunks(ssd_intra_chunk_split_ref, x, dt, cum, B, C, chunk)
+
+
+def _on_chunks(intra, x, dt, cum, B, C, chunk):
+    """A model of K7's arithmetic on the folded contract (C, B, x, dt,
+    cum -> y (G, Q, P), S (G, N, P)) run on the model's layout, as
+    :func:`ssd_chunk_ref` runs :func:`ssd_intra_chunk_ref`."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = cum.shape[1]
@@ -126,11 +137,90 @@ def ssd_chunk_split_ref(x, dt, cum, B, C, *, chunk: int):
         return a.reshape(b, nc, chunk, h, a.shape[-1]).permute(
             0, 1, 3, 2, 4).reshape(b * nc * h, chunk, a.shape[-1])
 
-    y, S = ssd_intra_chunk_split_ref(
-        fold(C), fold(B), fold(x), fold(dt[..., None]), fold(cum[..., None]))
+    y, S = intra(fold(C), fold(B), fold(x), fold(dt[..., None]),
+                 fold(cum[..., None]))
     y = y.reshape(b, nc, h, chunk, p).permute(0, 1, 3, 2, 4)
     S = S.reshape(b, nc, h, n, p).transpose(-1, -2)
     return y, S
+
+
+def tf32_parts(a):
+    """(hi, lo) of fp32 ``a`` as K6's, K10's, K7's and K12's tf32x3 kernels
+    feed the tensor cores (``split_tf32``): hi is ``a`` rounded to TF32 (to
+    nearest, ties away from zero), lo = a - hi, as the mma reads it (its
+    top 19 bits: TF32, truncated)."""
+    bits = a.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((a.float() - hi).contiguous().view(torch.int32)
+          & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def tf32x3_matmul(a, b):
+    """``a @ b`` as three TF32 products of the hi / lo split, the small
+    ones first (lo.hi + hi.lo + hi.hi), each summed in fp32."""
+    ah, al = tf32_parts(a)
+    bh, bl = tf32_parts(b)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def ssd_intra_chunk_tf32_ref(C, B, x, dt, cum):
+    """K7's tf32x3 arithmetic on the folded contract: C, B (G, Q, N), x
+    (G, Q, P), dt and cum (G, Q, 1).  cb = C . B^T; M'_ij = cb_ij
+    exp(cum_i - cum_j) dt_j for j <= i (no exponential past the diagonal),
+    else 0; y = M' . x; w_j = exp(cum_last - cum_j) dt_j; S = B^T . (w x)
+    -- each product three TF32 products (:func:`tf32x3_matmul`).  Returns
+    fp32 (y (G, Q, P), S (G, N, P))."""
+    c, b, xx = C.float(), B.float(), x.float()
+    dt, cum = dt.float(), cum.float()
+    q = c.shape[1]
+    cb = tf32x3_matmul(c, b.transpose(1, 2))                  # (G, Q, Q)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=c.device))
+    seg = torch.where(tri, cum - cum.transpose(1, 2),
+                      torch.full((), -torch.inf, device=c.device))
+    m = cb * torch.exp(seg) * dt.transpose(1, 2)              # 0 past i
+    y = tf32x3_matmul(m, xx)
+    w = torch.exp(cum[:, -1:] - cum) * dt                     # (G, Q, 1)
+    S = tf32x3_matmul(b.transpose(1, 2), w * xx)
+    return y, S
+
+
+def ssd_chunk_tf32_ref(x, dt, cum, B, C, *, chunk: int):
+    """:func:`ssd_chunk_ref` with K7's tf32x3 arithmetic
+    (:func:`ssd_intra_chunk_tf32_ref`): the same layouts and results."""
+    return _on_chunks(ssd_intra_chunk_tf32_ref, x, dt, cum, B, C, chunk)
+
+
+def _fold_backward(x, dt, cum, B, C, dy, dS, chunk):
+    """The backward's operands per (batch, chunk, head) -- G of them -- in
+    fp32, zero-padded to whole chunks (B and C copied to every head where
+    one group serves them all): x (G, q, p), dt (G, q, 1), B and C (G, q,
+    n), cum (G, q, 1), dy (G, q, p), dS (G, p, n)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    if B.dim() == 3:
+        B = B[:, :, None].expand(b, s, h, n)
+        C = C[:, :, None].expand(b, s, h, n)
+
+    def fold(a):                            # (b, nc*q, h, k) -> (G, q, k)
+        a = F.pad(a.float(), (0, 0, 0, 0, 0, nc * chunk - a.shape[1]))
+        return a.reshape(b, nc, chunk, h, a.shape[-1]).permute(
+            0, 1, 3, 2, 4).reshape(b * nc * h, chunk, a.shape[-1])
+
+    return (fold(x), fold(dt[..., None]), fold(B), fold(C),
+            cum.float().permute(0, 1, 3, 2).reshape(b * nc * h, chunk, 1),
+            dy.float().permute(0, 1, 3, 2, 4).reshape(b * nc * h, chunk, p),
+            dS.float().reshape(b * nc * h, p, n))
+
+
+def _unfold_heads(a, b, s, h, chunk):
+    """(G, q, k) per (batch, chunk, head) -> (b, s, h, k), the padding
+    dropped."""
+    k = a.shape[-1]
+    nc = a.shape[0] // (b * h)
+    return a.reshape(b, nc, h, chunk, k).permute(0, 1, 3, 2, 4).reshape(
+        b, nc * chunk, h, k)[:, :s]
 
 
 def ssd_chunk_backward_ref(x, dt, cum, B, C, dy, dS, *, chunk: int):
@@ -152,25 +242,13 @@ def ssd_chunk_backward_ref(x, dt, cum, B, C, dy, dS, *, chunk: int):
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = cum.shape[1]
-    pad = nc * chunk - s
     shared = B.dim() == 3
-    Bh = B[:, :, None].expand(b, s, h, n) if shared else B
-    Ch = C[:, :, None].expand(b, s, h, n) if shared else C
-
-    def fold(a):                            # (b, nc*q, h, k) -> (G, q, k)
-        a = F.pad(a.float(), (0, 0, 0, 0, 0, nc * chunk - a.shape[1]))
-        return a.reshape(b, nc, chunk, h, a.shape[-1]).permute(
-            0, 1, 3, 2, 4).reshape(b * nc * h, chunk, a.shape[-1])
+    xf, dtf, Bf, Cf, cumf, dyf, dSf = _fold_backward(x, dt, cum, B, C, dy,
+                                                     dS, chunk)
 
     def unfold(a):                          # (G, q, k) -> (b, s, h, k)
-        k = a.shape[-1]
-        return a.reshape(b, nc, h, chunk, k).permute(0, 1, 3, 2, 4).reshape(
-            b, nc * chunk, h, k)[:, :s]
+        return _unfold_heads(a, b, s, h, chunk)
 
-    xf, dtf, Bf, Cf = fold(x), fold(dt[..., None]), fold(Bh), fold(Ch)
-    cumf = cum.float().permute(0, 1, 3, 2).reshape(b * nc * h, chunk, 1)
-    dyf = dy.float().permute(0, 1, 3, 2, 4).reshape(b * nc * h, chunk, p)
-    dSf = dS.float().reshape(b * nc * h, p, n)
     xdt = xf * dtf
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
@@ -195,4 +273,59 @@ def ssd_chunk_backward_ref(x, dt, cum, B, C, dy, dS, *, chunk: int):
     dB, dC = unfold(dB), unfold(dC)
     if shared:
         dB, dC = dB.sum(2), dC.sum(2)
+    return dx, ddt, dcum.contiguous(), dB.to(B.dtype), dC.to(C.dtype)
+
+
+def ssd_chunk_backward_tf32_ref(x, dt, cum, B, C, dy, dS, *, chunk: int):
+    """K12's tf32x3 arithmetic on :func:`ssd_chunk_backward_ref`'s
+    contract: the same closed form, every product three TF32 products
+    (:func:`tf32x3_matmul`), dt applied after the products that it scales
+    (dM^T = dt_j (x_j . dy_i), the state terms), and, where one group
+    (b, s, n) serves every head, the heads' dcb summed first -- dC = (sum_h
+    dcb_h) B and dB = (sum_h dcb_h)^T C + sum_h e_h dt_h (x_h dS_h), the
+    n-wide products once a chunk.  Returns what
+    :func:`ssd_chunk_backward_ref` returns."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = cum.shape[1]
+    q = chunk
+    shared = B.dim() == 3
+    xf, dtf, Bf, Cf, cumf, dyf, dSf = _fold_backward(x, dt, cum, B, C, dy,
+                                                     dS, chunk)
+
+    def unfold(a):                          # (G, q, k) -> (b, s, h, k)
+        return _unfold_heads(a, b, s, h, chunk)
+
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    zero = torch.zeros((), device=x.device)
+    L = torch.exp(torch.where(tri, cumf - cumf.transpose(1, 2),
+                              torch.full((), -torch.inf, device=x.device)))
+    cb = tf32x3_matmul(Cf, Bf.transpose(1, 2))                # (G, Q, Q)
+    M = cb * L
+    e = torch.exp(cumf[:, -1:] - cumf)                        # (G, Q, 1)
+    BdS = tf32x3_matmul(Bf, dSf.transpose(1, 2))              # (G, Q, P)
+    dxdt = tf32x3_matmul(M.transpose(1, 2), dyf) + e * BdS
+    dM = torch.where(tri, tf32x3_matmul(dyf, xf.transpose(1, 2))
+                     * dtf.transpose(1, 2), zero)
+    dcb = dM * L
+    dL = dcb * cb
+    dee = dtf[..., 0] * (xf * BdS).sum(-1) * e[..., 0]        # (G, Q)
+    dcum = dL.sum(2) - dL.sum(1) - dee
+    dcum[:, -1] += dee.sum(1)
+    dBe = e * dtf * tf32x3_matmul(xf, dSf)                    # (G, Q, N)
+    if shared:
+        def chunks(a):                      # (b, s, n) -> (b * nc, q, n)
+            a = F.pad(a.float(), (0, 0, 0, nc * q - s))
+            return a.reshape(b * nc, q, n)
+        D = dcb.reshape(b * nc, h, q, q).sum(1)
+        dC = tf32x3_matmul(D, chunks(B))
+        dB = tf32x3_matmul(D.transpose(1, 2), chunks(C)) \
+            + dBe.reshape(b * nc, h, q, n).sum(1)
+        dB, dC = (a.reshape(b, nc * q, n)[:, :s] for a in (dB, dC))
+    else:
+        dC = unfold(tf32x3_matmul(dcb, Bf))
+        dB = unfold(tf32x3_matmul(dcb.transpose(1, 2), Cf) + dBe)
+    dx = unfold(dxdt * dtf).to(x.dtype)
+    ddt = unfold((dxdt * xf).sum(-1, keepdim=True))[..., 0]
+    dcum = dcum.reshape(b, nc, h, q).permute(0, 1, 3, 2)
     return dx, ddt, dcum.contiguous(), dB.to(B.dtype), dC.to(C.dtype)

@@ -272,15 +272,18 @@ def test_cuda_write_advance_matches_plain(cuda, n, masked):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4608, 70000])
 def test_cuda_write_advance_is_one_device_kernel(cuda, n):
-    """One device kernel a call (the parent ran two), read by
-    ``torch.profiler`` through chip_smoke's ``device_kernels``."""
+    """One device kernel a call (the parent ran two), counted from the
+    nodes of a CUDA graph captured of the call (chip_smoke's
+    ``graph_nodes``, which sees the kernel library's launches whatever
+    ``torch.profiler`` records): exactly one node, a kernel whose name
+    contains ``write_advance`` -- no other kernel, fill or copy."""
     import chip_smoke as cs
     rng, wts, rts, _r, _l = _tables(n, 5)
     mask = rng.integers(0, 2, n).astype(np.int32)
     args = [torch.from_numpy(x).to(cuda) for x in (wts, rts, mask)]
-    per_call = cs.device_kernels(lambda: K.write_advance(*args, 9))
+    per_call = cs.graph_nodes(lambda: K.write_advance(*args, 9))
     assert list(per_call.values()) == [1], per_call
-    assert "write_advance" in next(iter(per_call))
+    assert "write_advance" in next(iter(per_call)), per_call
 
 
 def test_write_advance_ctas():

@@ -128,7 +128,21 @@ def test_ssd_variant_and_heads_per_cta():
     ok = ((row * 3072, row, 64, row * 3072, row, 0), (0, 10240, 10496))
     assert SK.ssd_variant(bf, bf, 256, 64, 64, *ok) == "mma"
     assert SK.ssd_variant(bf, bf, 256, 64, 128, *ok) == "mma"
-    assert SK.ssd_variant(f32, f32, 256, 64, 64, *ok) == "simt"
+    # an fp32 x over fp32 or bf16 B/C: the tf32x3 tensor-core variant
+    assert SK.ssd_variant(f32, f32, 256, 64, 64, *ok) == "tf32x3"
+    assert SK.ssd_variant(f32, f32, 256, 64, 128, *ok) == "tf32x3"
+    assert SK.ssd_variant(f32, bf, 256, 64, 64, *ok) == "tf32x3"
+    assert SK.ssd_variant(f32, f32, 256, 64, 64, (row, row, 64, row, 2, 0),
+                          ok[1]) == "tf32x3"     # B/C by plain loads
+    # ... and what still takes the SIMT kernel
+    assert SK.ssd_variant(f32, f32, 8, 64, 64, *ok) == "simt"     # chunk
+    assert SK.ssd_variant(f32, f32, 256, 128, 64, *ok) == "simt"  # p > 64
+    assert SK.ssd_variant(f32, f32, 256, 20, 64, *ok) == "simt"   # p % 8
+    assert SK.ssd_variant(f32, f32, 256, 64, 256, *ok) == "simt"  # n > 128
+    assert SK.ssd_variant(f32, f32, 256, 64, 64, (row, 2, 64, row, row, 0),
+                          ok[1]) == "simt"       # x's stride
+    assert SK.ssd_variant(f32, f32, 256, 64, 64, ok[0],
+                          (8, 10240, 10496)) == "simt"     # x's pointer
     assert SK.ssd_variant(bf, f32, 256, 64, 64, *ok) == "simt"
     assert SK.ssd_variant(bf, bf, 8, 64, 64, *ok) == "simt"       # chunk
     assert SK.ssd_variant(bf, bf, 256, 128, 64, *ok) == "simt"    # p > 64
