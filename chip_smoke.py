@@ -53,8 +53,9 @@ Phases (any failure exits non-zero; nothing is caught):
      kind, host time by operator);
      then multi-host serving (``MultiHostServingCluster``: hosts in one
      process ticked in lockstep over one sharded lease directory whose
-     tables and home pages sit on the card) at the same width and depth,
-     every host on the paged path's pool and the same weight tensors: fleet
+     tables and home pages sit on the card) at the same width and 8 of
+     its 22 layers (``FLEET_LAYERS``: the script's time limit), every
+     host on the paged path's pool and the same weight tensors: fleet
      A (2 mixed hosts, 2 shards; requests 0-3 on host 0, then 4-7 on host
      1) and fleet B (prefill, decode, decode; 4 shards; routed), each with
      the launch counts set to 0 before and read after (K1-K4, K6, K8 must
@@ -64,13 +65,15 @@ Phases (any failure exits non-zero; nothing is caught):
      page bit-identical to its home row, the device syncs a directory
      wave costs (``torch.cuda.set_sync_debug_mode``), then each warm and
      then profiled (the card's activity only);
-     then the fixed-wave dense-cache path, twice at full width and depth:
-     tinyllama-1.1b with prefix_reuse=False and zamba2-2.7b (hybrid, its
-     default metadata-only prefix leases), each with 4 replicas, 4096-slot
+     then the fixed-wave dense-cache path, twice at full width:
+     tinyllama-1.1b (22 layers) with prefix_reuse=False and zamba2-2.7b
+     at 18 of its 54 layers (3 groups of 6 Mamba2 layers and the shared
+     attention; hybrid, its default metadata-only prefix leases), each
+     with 4 replicas, 4096-slot
      dense caches and 8 requests of 2048-3072 random prompt tokens and 16
      new tokens -- launch counts set to 0 before each run and read after
      (K5 must launch on both), one decode step as on the paged path (K8:
-     tinyllama 1 plain + 44 add, zamba2 54 gate + 19 add), then each again
+     tinyllama 1 plain + 44 add, zamba2 18 gate + 7 add), then each again
      warm under the profiler (the card's activity only: idle share, device
      time by kind); then the paged path serving kimi-k2-1t-a32b at full
      width (d_model 7168, 64 / 8 heads, Dh 112, vocab 163840, 384 experts
@@ -188,9 +191,10 @@ K6 and K10 at its attention shapes (20 / 20 heads, Dh 64, non-causal, 1500
 encoder positions: the encoder's self-attention, the prefill's and a
 decode step's cross-attention in bf16, training's encoder and
 cross-attention in fp32 with the LSE, K10 at both) beside SDPA; phase 3
-serves it at full width and depth (random bf16 weights from seed 0: 4
-clips of 1500 frames, a 4-token prompt, 64 greedy tokens each, 448-slot
-caches; K6 96 launches a prefill and 32 a decode step, all "wgmma") and
+serves it at full width and 16 + 16 of its 32 + 32 layers (``WS_LAYERS``;
+random bf16 weights from seed 0: 4 clips of 1500 frames, a 4-token
+prompt, 64 greedy tokens each, 448-slot caches; K6 48 launches a prefill
+and 16 a decode step, all "wgmma") and
 trains it in fp32 weights (3 steps of 2 clips and 448 tokens; K6 / K10 96
 and K8 / K11 161 launches a step); phase 4 holds it at full width and 2 +
 2 layers, card against CPU (fp32 loss, gradients and an AdamW step; the
@@ -198,19 +202,51 @@ bf16 path teacher-forced).  The protocol model checker (phase 3) closes
 the SC, no-pw-opt and TSO lanes of the 2-core / 1-block config with its
 bridge replaying every distinct engine read (K1) and write (K2) on the
 card, with the numpy lane's counts.
+The decoder configurations (phase 3): glm4-9b and mistral-nemo-12b at
+their published 40 layers, qwen2-vl-72b at 24 of its 80, llama3-405b at 6
+of 126 and arctic-480b at 2 of 35 (``DECODERS``), each at full width on
+the paged path with the tinyllama cell's traffic (random bf16 weights from
+seed 0, each configuration's freed before the next's): the launch counts
+set to 0 before and read after (K1-K4, K6, K8; every K4 launch "mma",
+every K6 launch "wgmma"), every request done, the pool finite, a prefix
+hit; tokens/s first and warm, the peak memory, one decode step's
+launches, a profiled run's idle share.  Phase 2 holds K4 (B 8, P 32: the
+paged path's page-table width) and K6 at their attention shapes beside
+SDPA -- K6 at what their paged paths give it (a cold prompt padded to 80
+tokens, a 16-query suffix at q_offset 64) and, as timing rows no path
+runs, at B 4, S 3072 -- and K4's fp32 q over a bf16 pool (fp32 weights on
+the paged path) on its SIMT variant.
+Then the example twins on the card: ``examples/serve_tardis_torch.py``
+at full tinyllama-1.1b (its fp32 weights, traffic and hot-swap, under
+TARDIS_SANITIZE=1, every ``--check`` assertion),
+``examples/elastic_dp_torch.py`` at its reduced config card against CPU
+from the same weights (every worker step's loss within 2e-4) and at full
+tinyllama-1.1b in fp32 (its joins, leaves, renewals, data-less renewals
+and staleness equal to the reduced run's; again at lr 3e-4, printed),
+``examples/train_ft_lm_torch.py --full`` at 60 of its 200 steps
+(``TRAIN_EXAMPLE_STEPS``: the script's time limit; one restart, the last
+step, a lower loss; ms a step and tokens/s); and
+``scripts/check.sh``'s CLI smokes through ``launch.dryrun.main`` and
+``launch.serve.main`` on the card, with check.sh's assertions.  Phase 4
+holds one teacher-forced paged lane per decoder configuration
+(``decoder_phase4_config``: 2 layers, vocab 32000, every MLP width 16,
+arctic's experts 16 top-2) with the norm check.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest.mock import patch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -233,6 +269,17 @@ WAVE_KERNELS = {"tinyllama-1.1b": ("dense_decode", "flash_prefill",
                                    "rmsnorm"),
                 "zamba2-2.7b": ("dense_decode", "flash_prefill", "ssd_chunk",
                                 "rmsnorm")}
+
+# The decoder configurations served on the paged path at full width
+# (phase 3) and their depth on the card: the published depth where the
+# bf16 weights fit beside the pool (glm4, mistral-nemo), cut where they do
+# not (qwen2-vl 80 -> 24, llama3 126 -> 6, arctic 35 -> 2); and the short
+# names of their kernel rows
+DECODERS = (("glm4-9b", 40), ("mistral-nemo-12b", 40), ("qwen2-vl-72b", 24),
+            ("llama3-405b", 6), ("arctic-480b", 2))
+DECODER_ROWS = {"glm4-9b": "glm4", "mistral-nemo-12b": "mistral_nemo",
+                "qwen2-vl-72b": "qwen2_vl", "llama3-405b": "llama3",
+                "arctic-480b": "arctic"}
 
 
 def log(*a):
@@ -274,6 +321,28 @@ def graph_ms(fn, iters=20, reps=7):
     return median_ms(graph.replay, iters=1, reps=reps) / iters
 
 
+def profile_rows(prof, device_type):
+    """``prof.key_averages()``'s rows of one device type (``key``,
+    ``count``, ``self_device_time_total`` and ``self_cpu_time_total`` in
+    us: the events' own spans, which is their self time where they nest
+    nothing -- device kernels, the CUDA runtime's calls), summed straight
+    from the profiler's events: key_averages builds a tree of every event
+    first, ~0.1 ms of host time an event on the card's machine, which a
+    path's 10^5 kernels make many seconds."""
+    import collections
+    from types import SimpleNamespace
+    count, span = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != device_type or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        count[e.name()] += 1
+        span[e.name()] += (e.end_ns() - e.start_ns()) / 1e3
+    return [SimpleNamespace(key=k, count=n, self_device_time_total=span[k],
+                            self_cpu_time_total=span[k])
+            for k, n in count.items()]
+
+
 def device_kernels(fn):
     """{name: count} of the device kernels one call of ``fn`` runs, read
     by ``torch.profiler`` (copies and fills left out)."""
@@ -284,9 +353,8 @@ def device_kernels(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset"))}
+    return {e.key: e.count for e in profile_rows(prof, DeviceType.CUDA)
+            if not e.key.startswith(("Memcpy", "Memset"))}
 
 
 def graph_nodes(fn):
@@ -427,20 +495,26 @@ def phase1_card_and_build():
     return smi
 
 
-def sass_counts(lib, opcode):
-    """{kernel function: instructions of ``opcode``} in the library's SASS
-    (``cuobjdump -sass``)."""
+@functools.lru_cache(maxsize=None)
+def _sass(lib):
+    """The library's SASS (``cuobjdump -sass``), dumped once."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+
+
+def sass_counts(lib, opcode):
+    """{kernel function: how many ``opcode`` lines} in the library's SASS
+    (``cuobjdump -sass``)."""
     counts, fn = {}, None
-    for line in sass.splitlines():
+    for line in _sass(lib).splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn and any(t.startswith(opcode + ".") or t == opcode
-                        for t in line.split()):
+        elif fn and opcode in line and any(
+                t.startswith(opcode + ".") or t == opcode
+                for t in line.split()):
             counts[fn] += 1
     return {f: n for f, n in counts.items() if n}
 
@@ -577,13 +651,16 @@ def phase2_kernels(rows):
     hkv, dh = 4, 64
     k4_row(rows, g, "paged_decode", "paged", view, b, hkv, 8, dh, 32, chunk,
            li * hkv * dh, (n_layers + li) * hkv * dh)
-    # ... and at the moe configs' attention shapes over pools of 2 layers:
-    # kimi-k2 (Dh 112, G 8; its moe stack's segment at offset 1792 of the
-    # token row, after the leading dense stack's) and arctic (Dh 128, G 7)
-    for name, path, arch in (("paged_decode.kimi", "kimi-k2-1t-a32b",
-                              "kimi-k2-1t-a32b"),
-                             ("paged_decode.arctic", "arctic-480b",
-                              "arctic-480b")):
+    # ... and at the other configs' attention shapes over pools of 2
+    # layers: kimi-k2 (Dh 112, G 8; its moe stack's segment at offset 1792
+    # of the token row, after the leading dense stack's), arctic (Dh 128,
+    # G 7), glm4 (2 kv heads, G 16), mistral-nemo (G 4), qwen2-vl (G 8) and
+    # llama3 (G 16), all Dh 128
+    for name, arch in (("paged_decode.kimi", "kimi-k2-1t-a32b"),
+                       ("paged_decode.arctic", "arctic-480b"),
+                       *((f"paged_decode.{DECODER_ROWS[a]}", a)
+                         for a, _depth in DECODERS if a != "arctic-480b")):
+        path = arch
         cfg = dataclasses.replace(get_arch(arch), n_layers=2)
         stack = pool_layout(cfg)[-1]
         hkv, dh = cfg.n_kv_heads, cfg.head_dim()
@@ -614,9 +691,10 @@ def k4_row(rows, g, name, path, view, b, hkv, grp_q, dh, p_max, chunk,
            k_off, v_off):
     """K4 against its plain version over the pool rows ``view`` at one
     attention shape -- bf16 on its tensor-core variant within 3e-2 and one
-    bf16 rounding step, fp32 on its SIMT variant within 2e-4 -- then its
-    row: device time beside gather + SDPA (a yardstick the port never
-    calls) and its bound."""
+    bf16 rounding step, fp32 (and an fp32 q over the bf16 pool, as fp32
+    weights serve) on its SIMT variant within 2e-4 -- then its row: device
+    time beside gather + SDPA (a yardstick the port never calls) and its
+    bound."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention.ref import \
@@ -631,13 +709,15 @@ def k4_row(rows, g, name, path, view, b, hkv, grp_q, dh, p_max, chunk,
     ck = torch.randn((b, hkv, dh), generator=g, device=dev)
     cv = torch.randn((b, hkv, dh), generator=g, device=dev)
     errs = {}
-    for tag, qd, tol in (("bf16", torch.bfloat16, BF16),
-                         ("fp32", torch.float32, FP32)):
-        pv = view if qd == torch.bfloat16 else view.float()
-        args = (q.to(qd), ck.to(qd), cv.to(qd), pv, page_rows, lengths)
+    for tag, qd, pd, tol in (
+            ("bf16", torch.bfloat16, torch.bfloat16, BF16),
+            ("fp32", torch.float32, torch.float32, FP32),
+            ("fp32 q / bf16 pool", torch.float32, torch.bfloat16, FP32)):
+        pv = view if pd == torch.bfloat16 else view.float()
+        args = (q.to(qd), ck.to(pd), cv.to(pd), pv, page_rows, lengths)
         got, variant = variant_of(DK.paged_decode, lambda: DK.paged_decode(
             *args, chunk=chunk, k_off=k_off, v_off=v_off))
-        # bf16: the tensor-core variant; fp32: the SIMT variant
+        # bf16: the tensor-core variant; an fp32 q: the SIMT variant
         assert variant == ("mma" if qd == torch.bfloat16 else "simt"), \
             f"K4 {name} {tag} took the {variant} variant"
         want = paged_decode_attention_ref(
@@ -654,7 +734,7 @@ def k4_row(rows, g, name, path, view, b, hkv, grp_q, dh, p_max, chunk,
         errs[tag] = max_err(got.float(), want.float())
         del pv
     log(f"K4 {name} max |err|: {errs} (bf16: tensor-core variant; "
-        f"fp32: SIMT)")
+        f"fp32 q: SIMT)")
     args = (q.to(torch.bfloat16), ck.to(torch.bfloat16),
             cv.to(torch.bfloat16), view, page_rows, lengths)
 
@@ -791,13 +871,15 @@ def phase2_dense_decode(rows):
 def phase2_prefill_kernels(rows):
     """K6-K8 against their plain versions at the prefill step's full-width
     shapes: K6 at both wave paths' prompts (4 x 3072 tokens) and the paged
-    path's suffix prefill (16 queries at q_offset 64 in an 80-slot cache);
+    paths' prefills (a cold prompt padded to 80 tokens; the suffix, 16
+    queries at q_offset 64 in an 80-slot cache);
     K7 at zamba2's scan (b 4, 12 chunks of 256, 80 heads, state 64, head
     dim 64), over the conv output's column views as the model passes them;
     K8 at the prefill rows of tinyllama's norms and zamba2's gated norm and
     at one decode step's rows.  The plain versions of K6 run one request
     at a time (one request's fp32 scores alone are 1.2 GB)."""
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -825,11 +907,29 @@ def phase2_prefill_kernels(rows):
             ("flash_prefill.paged_suffix", "paged", 1, 16, 80, 32, 4, 64,
              64, 80, (("bf16", b16, BF16), ("fp32", f32, FP32))),
             # kimi-k2's attention (64 / 8 heads, Dh 112): the paged
-            # suffix and a cold 64-token prompt
+            # suffix and a cold prompt (its 68-80 tokens padded to 80)
             ("flash_prefill.kimi_suffix", "kimi-k2-1t-a32b", 1, 16, 80, 64,
              8, 112, 64, 80, (("bf16", b16, BF16), ("fp32", f32, FP32))),
-            ("flash_prefill.kimi_cold", "kimi-k2-1t-a32b", 1, 64, 64, 64, 8,
-             112, 0, 64, (("bf16", b16, BF16), ("fp32", f32, FP32)))):
+            ("flash_prefill.kimi_cold", "kimi-k2-1t-a32b", 1, 80, 80, 64, 8,
+             112, 0, 80, (("bf16", b16, BF16), ("fp32", f32, FP32))),
+            # the decoder configurations' attention (Dh 128; glm4 32 / 2
+            # heads, mistral-nemo 32 / 8, qwen2-vl 64 / 8, llama3 128 / 8,
+            # arctic 56 / 8) at what their paged paths give K6, as kimi's
+            # rows: the suffix and the cold prompt ...
+            *((f"flash_prefill.{DECODER_ROWS[arch]}_{part}", arch, 1, sq,
+               skv, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim(), q_off, skv,
+               (("bf16", b16, BF16), ("fp32", f32, FP32)))
+              for arch, cfg in ((a, get_arch(a)) for a, _d in DECODERS)
+              for part, sq, skv, q_off in (("suffix", 16, 80, 64),
+                                           ("cold", 80, 80, 0))),
+            # ... and, timing rows only, at a long prompt (B 4, S 3072): no
+            # path runs these configurations there, so their launches
+            # read 0 (path "none")
+            *((f"flash_prefill.{DECODER_ROWS[arch]}_s3072", "none", 4, 3072,
+               3072, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim(), 0, 3072,
+               (("bf16", b16, BF16),))
+              for arch, cfg in ((a, get_arch(a)) for a, _d in DECODERS
+                                if a != "arctic-480b"))):
         q32, k32, v32 = randn(b, sq, h, dh), randn(b, skv, hkv, dh), \
             randn(b, skv, hkv, dh)
         kw = dict(causal=True, q_offset=q_off, kv_len=kv_len)
@@ -1467,9 +1567,10 @@ def profile_path(label, serve, smi, top=12, with_host=True):
     with profile(activities=activities) as prof:
         _c, done, _r, wall = serve()
     n_tok = sum(len(r.output) for r in done)
-    avgs = prof.key_averages()
-    dev_rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    host_rows = [e for e in avgs if e.device_type == DeviceType.CPU]
+    dev_rows = profile_rows(prof, DeviceType.CUDA)
+    host_rows = ([e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU] if with_host
+                 else profile_rows(prof, DeviceType.CPU))
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e6   # us->s
     n_launch = sum(e.count for e in host_rows
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
@@ -2018,6 +2119,9 @@ def phase3_simulator_path(smi, rows, t_l2, t_smem):
 FLEETS = {"A": dict(n_hosts=2, n_shards=2),
           "B": dict(n_hosts=3, n_shards=4,
                     roles=("prefill", "decode", "decode"))}
+# phase 3's fleets run tinyllama-1.1b at full width and this many of its
+# 22 layers, so that the script keeps within its time limit
+FLEET_LAYERS = 8
 
 
 def _serve_fleet(cfg, params, dev, fleet, n_prefix_blocks=4096,
@@ -2126,8 +2230,9 @@ def count_wave_syncs(tally):
 
 
 def phase3_multi_host(smi):
-    """Fleets A and B at full width and depth (tinyllama-1.1b, bf16
-    weights from seed 0, every host sharing the same weight tensors), the
+    """Fleets A and B at full width and ``FLEET_LAYERS`` layers
+    (tinyllama-1.1b, bf16 weights from seed 0, every host sharing the
+    same weight tensors), the
     directory on the card: per fleet the launch counts set to 0 just
     before its run and read just after (K1-K4, K6 and K8 must launch),
     ``check_fleet``, the device syncs a directory wave costs, the
@@ -2140,7 +2245,8 @@ def phase3_multi_host(smi):
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      variant_counts)
     from repro_torch.models import init_params
-    cfg = get_arch("tinyllama-1.1b")
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"),
+                              n_layers=FLEET_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(cfg, gen, torch.bfloat16)
     out = {}
@@ -2159,7 +2265,7 @@ def phase3_multi_host(smi):
                  + (f" {','.join(kw['roles'])}" if "roles" in kw else
                     " mixed") + f", {kw['n_shards']} shards)")
         log(f"multi-host {label} on {smi}: tinyllama-1.1b full width "
-            f"({cfg.n_layers} layers), {len(done)} requests served, "
+            f"({cfg.n_layers} of its 22 layers), {len(done)} requests served, "
             f"{n_tok} tokens in {dt:.2f} s = {n_tok / dt:.1f} tokens/s; "
             f"{n_pages} migrated pages bit-identical to their home rows; "
             f"max_memory_allocated "
@@ -2195,9 +2301,12 @@ def phase3_multi_host(smi):
     return out
 
 
-# The fixed-wave dense-cache path: (arch, ServingCluster kwargs)
-WAVE_PATHS = (("tinyllama-1.1b", dict(prefix_reuse=False)),
-              ("zamba2-2.7b", {}))
+# The fixed-wave dense-cache path: (arch, its depth on the card,
+# ServingCluster kwargs); zamba2 at 3 of its 9 groups (each 6 Mamba2
+# layers and the shared attention), so that the script keeps within its
+# time limit
+WAVE_PATHS = (("tinyllama-1.1b", 22, dict(prefix_reuse=False)),
+              ("zamba2-2.7b", 18, {}))
 
 
 def _wave_requests(Request, np, vocab, n=8, lo=2048, hi=3072, max_new=16,
@@ -2231,8 +2340,9 @@ def _serve_waves(cfg, params, dev, cache_len, reqs_kw, trace=False, **kw):
 
 
 def phase3_wave_paths(smi):
-    """The fixed-wave path at full width and depth, once per configuration
-    with the launch counts set to 0 just before and read just after, one
+    """The fixed-wave path at full width (``WAVE_PATHS``' depths), once per
+    configuration with the launch counts set to 0 just before and read
+    just after, one
     decode step's launches (``_hold_step``), then warm and profiled.
     Returns {arch: (launch counts, launches by variant)}."""
     import numpy as np
@@ -2242,8 +2352,8 @@ def phase3_wave_paths(smi):
                                      variant_counts)
     from repro_torch.models import init_params, param_leaves
     out = {}
-    for arch, kw in WAVE_PATHS:
-        cfg = get_arch(arch)
+    for arch, depth, kw in WAVE_PATHS:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         params = init_params(cfg, gen, torch.bfloat16)
         n_par = sum(t.numel() for t in param_leaves(params))
@@ -2312,70 +2422,342 @@ def kimi_phase4_config():
 
 
 def phase3_kimi_path(smi):
-    """The paged path serving kimi-k2 at full width (``kimi_config``), the
-    weights of the earlier paths freed first: the launch counts set to 0
-    just before the run and read just after (K1-K4, K6, K8; every K4
-    launch on the tensor-core variant at Dh 112), the card's peak memory,
-    one decode step's launches, then warm and profiled.  Returns (launch
-    counts, launches by variant)."""
+    """``phase3_decoder_path`` serving kimi-k2 at full width
+    (``kimi_config``), its two cache stacks held too: both in the pool's
+    token rows, each appended with every token.  Returns (launch counts,
+    launches by variant)."""
+    def two_stacks(report):
+        assert report["kv_pool_stacks"] == "dense,moe", \
+            report["kv_pool_stacks"]
+        assert (report["pool_tokens_appended_dense"]
+                == report["pool_tokens_appended_moe"]
+                == report["kv_tokens_appended"] > 0)
+    return phase3_decoder_path(smi, kimi_config(), check=two_stacks)
+
+
+def decoder_config(arch, depth):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), n_layers=depth)
+
+
+def phase3_decoder_path(smi, cfg, check=None):
+    """The paged path serving ``cfg`` at full width, the earlier paths'
+    weights freed first and this one's drawn in bf16 on the card: the
+    launch counts set to 0 just before the run and read just after (K1-K4,
+    K6, K8 must launch; every K4 launch on "mma", every K6 launch on
+    "wgmma"), every request done with its 16 tokens, the pool finite, a
+    prefix hit, ``check(report)``; tokens/s of the first run, the card's
+    peak memory, one decode step's launches, a warm run and a profiled one
+    (the card's activity only: its idle share).  Returns (launch counts,
+    launches by variant)."""
     import numpy as np
     import torch
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      variant_counts)
     from repro_torch.models import init_params, param_leaves
-    cfg = kimi_config()
+    gc.collect()        # a cluster's engine and replicas form cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = init_params(cfg, gen, torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), torch.bfloat16)
     torch.cuda.synchronize()
     leaves = param_leaves(params)
     n_par = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    log(f"kimi-k2 weights on {smi}: {n_par / 1e9:.3f} B params, "
-        f"{n_bytes / 1e9:.2f} GB, drawn in {time.perf_counter() - t0:.1f} s; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-        f" GB")
+    del leaves
+    label = (f"{cfg.name} paged path ({cfg.n_layers} layers"
+             + (f": {cfg.first_dense_layers} dense + "
+                f"{cfg.n_layers - cfg.first_dense_layers} moe"
+                if cfg.first_dense_layers else "")
+             + f", d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+             f"heads, Dh {cfg.head_dim()}, vocab {cfg.vocab}"
+             + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+                if cfg.n_experts else "") + ")")
+    log(f"{cfg.name} weights on {smi}: {n_par / 1e9:.3f} B params, "
+        f"{n_bytes / 1e9:.2f} GB, drawn in {time.perf_counter() - t0:.1f} s")
     reset_launch_counts()
     cluster, done, report, dt = _serve(cfg, params, "cuda", 4096, 512)
     counts = launch_counts()
     variants = variant_counts()
+    # read before the check below: isfinite's temporaries take 2.5x the pool
+    peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(r.output) for r in done)
-    assert all(r.done and len(r.output) == r.max_new for r in done)
+    assert all(r.done and len(r.output) == r.max_new == 16 for r in done)
     assert all(0 <= int(t) < cfg.vocab for r in done for t in r.output)
     assert bool(torch.isfinite(cluster.prefix_engine._kv_pool).all())
     assert report["prefix_prefill_tokens_skipped"] > 0, "no prefix hit"
-    assert report["kv_pool_stacks"] == "dense,moe", report["kv_pool_stacks"]
-    assert (report["pool_tokens_appended_dense"]
-            == report["pool_tokens_appended_moe"]
-            == report["kv_tokens_appended"] > 0)
-    log(f"kimi-k2 paged path on {smi}: full width ({cfg.n_layers} layers: "
-        f"{cfg.first_dense_layers} dense + "
-        f"{cfg.n_layers - cfg.first_dense_layers} moe, d_model "
-        f"{cfg.d_model}, Dh {cfg.head_dim()}, {cfg.n_experts} experts "
-        f"top-{cfg.top_k}), {len(done)} requests served, {n_tok} tokens in "
-        f"{dt:.2f} s = {n_tok / dt:.1f} tokens/s; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"coherence_report (kimi-k2) on {smi}: " + json.dumps(
+    if check is not None:
+        check(report)
+    log(f"{label} on {smi}: {len(done)} requests served, {n_tok} tokens in "
+        f"{dt:.2f} s = {n_tok / dt:.1f} tokens/s (first run); "
+        f"max_memory_allocated {peak / 1e9:.2f} GB (weights and pool "
+        f"{(n_bytes + cluster.prefix_engine._kv_pool.nbytes) / 1e9:.2f} GB)")
+    log(f"coherence_report ({cfg.name}) on {smi}: " + json.dumps(
         {k: (int(v) if isinstance(v, (int, np.integer)) else v)
          for k, v in report.items()}))
-    log(f"launches on the kimi-k2 paged path: {counts}")
-    log(f"launches by variant on the kimi-k2 paged path: {variants}")
+    log(f"launches on the {cfg.name} paged path: {counts}")
+    log(f"launches by variant on the {cfg.name} paged path: {variants}")
     missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
-    assert not missing, f"kernels never launched on the kimi path: {missing}"
+    assert not missing, \
+        f"kernels never launched on the {cfg.name} path: {missing}"
     assert variants["paged_decode"] == {"mma": counts["paged_decode"]}, \
-        f"K4 launches by variant (kimi): {variants['paged_decode']}"
+        f"K4 launches by variant ({cfg.name}): {variants['paged_decode']}"
     assert variants["flash_prefill"] == {"wgmma": counts["flash_prefill"]}, \
-        f"K6 launches by variant (kimi): {variants['flash_prefill']}"
+        f"K6 launches by variant ({cfg.name}): {variants['flash_prefill']}"
     del cluster
+    gc.collect()
     torch.cuda.empty_cache()
-    _hold_step("paged path, kimi-k2-1t-a32b", cfg, params, "paged")
-    profile_path("kimi-k2 paged path", lambda: _serve(
-        cfg, params, "cuda", 4096, 512), smi)
-    del params, leaves
+    torch.cuda.reset_peak_memory_stats()
+    _hold_step(f"paged path, {cfg.name}", cfg, params, "paged")
+    _c, done, _r, dt = _serve(cfg, params, "cuda", 4096, 512)
+    n_tok = sum(len(r.output) for r in done)
+    log(f"profile: warm {cfg.name} paged path on {smi}: {n_tok} tokens in "
+        f"{dt:.3f} s = {n_tok / dt:.1f} tokens/s (no profiler)")
+    del _c, done, _r
+    gc.collect()
+    profile_path(f"{cfg.name} paged path", lambda: _serve(
+        cfg, params, "cuda", 4096, 512), smi, with_host=False)
+    log(f"{cfg.name}: max_memory_allocated over the decode step, the warm "
+        f"and the profiled run {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, variants
+
+
+def phase3_decoder_paths(smi):
+    """``phase3_decoder_path`` for each of ``DECODERS``.  Returns {arch:
+    (launch counts, launches by variant)}."""
+    out = {}
+    for arch, depth in DECODERS:
+        t0 = time.perf_counter()
+        out[arch] = phase3_decoder_path(smi, decoder_config(arch, depth))
+        log(f"[{arch}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+def _example(name):
+    """``examples/<name>.py`` loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase3_serving_example(smi):
+    """``examples/serve_tardis_torch.py`` on the card: its traffic (24
+    requests on 3 replicas, a 32-token system prompt in blocks of 8,
+    random budgets up to 8 tokens), its fp32 weights and its hot-swap
+    between the halves, at the published tinyllama-1.1b config (22
+    layers, full width), under ``TARDIS_SANITIZE=1``: the ledger printed,
+    every ``--check`` assertion, K1-K4, K6 and K8 launched."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.models import init_params
+    ex = _example("serve_tardis_torch")
+    args = ex.parse_args([])
+    cfg = get_arch("tinyllama-1.1b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), torch.float32)
+    with patch.dict(os.environ, {"TARDIS_SANITIZE": "1"}):
+        reset_launch_counts()
+        cluster, reqs, (_, report), wts, dt = ex.serve(cfg, params, args,
+                                                       "cuda")
+        counts = launch_counts()
+        variants = variant_counts()
+    ex.print_ledger(cluster, reqs, report, dt)
+    ex.check(cluster, reqs, report, args)
+    assert report["sanitize_checks"] > 0 and wts > 0
+    log(f"serving example on {smi}: tinyllama-1.1b full width (fp32 "
+        f"weights), {len(reqs)} requests, hot-swap at logical time {wts}, "
+        f"{report['sanitize_checks']} sanitizer checks; launches {counts}; "
+        f"by variant {variants}")
+    missing = [k for k in PAGED_KERNELS if counts[k] <= 0]
+    assert not missing, f"kernels never launched by the example: {missing}"
+    del cluster, params
+    torch.cuda.empty_cache()
+
+
+def phase3_elastic_example(smi):
+    """``examples/elastic_dp_torch.py`` at its own reduced config on the
+    card and on the CPU from the same weights -- every worker step's loss
+    within rtol 2e-4 (``tests/test_torch_elastic.py``'s tolerance), every
+    counter equal -- then at tinyllama-1.1b full width and depth in fp32
+    on the card: joins, leaves, renewals, data-less renewals and max
+    staleness equal to the reduced run's (they follow from the schedule
+    and the lease alone), the losses finite, K6 / K10 and K8 / K11
+    launched (counts set to 0 before the run, read after).  The full-width
+    run again at a tenth of the example's learning rate, its losses
+    printed (at 3e-3 AdamW's first steps move each weight by about the
+    rate, so a matmul's output by about the rate times its fan-in)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    ex = _example("elastic_dp_torch")
+    keys = ("joins", "leaves", "renewals", "data_less", "max_staleness")
+    small = ex.model_config()
+    p_cpu = init_params(small, torch.Generator().manual_seed(SEED),
+                        torch.float32)
+    p_card = _cast(p_cpu, device="cuda")      # before the CPU run steps
+    cpu = ex.run(small, p_cpu, "cpu")
+    reset_launch_counts()
+    card = ex.run(small, p_card, "cuda")
+    counts = {k: n for k, n in launch_counts().items() if n}
+    a, b = (torch.tensor(x.losses, dtype=torch.float64) for x in (card, cpu))
+    rel = float(((a - b).abs() / b.abs()).max())
+    log(f"elastic example, its reduced config (d_model {small.d_model}, "
+        f"{small.n_layers} layers, vocab {small.vocab}) on {smi} against the "
+        f"CPU from the same weights: {len(card.losses)} worker steps, worst "
+        f"relative loss difference {rel:.3g} (limit 2e-4); loss "
+        f"{card.losses[0]:.6f} -> {card.losses[-1]:.6f} (CPU "
+        f"{cpu.losses[0]:.6f} -> {cpu.losses[-1]:.6f}); launches {counts}")
+    assert dataclasses.asdict(card) | {"losses": None} == \
+        dataclasses.asdict(cpu) | {"losses": None}, (card, cpu)
+    torch.testing.assert_close(a, b, rtol=2e-4, atol=0)
+    missing = [k for k in TRAIN_KERNELS if k not in counts]
+    assert not missing, f"kernels never launched (reduced): {missing}"
+    want = {k: getattr(cpu, k) for k in keys}
+    del p_cpu, p_card, card
+    cfg = get_arch("tinyllama-1.1b")
+    for lr in (3e-3, 3e-4):
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), torch.float32)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = ex.run(cfg, params, "cuda", lr=lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: n for k, n in launch_counts().items() if n}
+        got = {k: getattr(rep, k) for k in keys}
+        log(f"elastic example on {smi}: tinyllama-1.1b full width and depth "
+            f"(fp32), lr {lr:g}, {rep.steps} steps, {len(rep.losses)} worker "
+            f"steps in {dt:.2f} s; losses by step "
+            + " ".join(f"{x:.4f}" for x in rep.losses)
+            + f"; {got} (the reduced run: {want}); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+            f"{counts} ({len(rep.losses)} gradients)")
+        assert got == want, f"elastic counters card {got} != cpu {want}"
+        assert all(math.isfinite(x) for x in rep.losses)
+        missing = [k for k in TRAIN_KERNELS if k not in counts]
+        assert not missing, f"kernels never launched by the example: {missing}"
+        if lr == 3e-3:
+            ex.print_report(rep)
+        del rep, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ``train_ft_lm_torch --full`` on the card runs this many of its 200 steps
+# (``--steps``), so that the script keeps within its time limit
+TRAIN_EXAMPLE_STEPS = 60
+
+
+def phase3_training_example(smi):
+    """``examples/train_ft_lm_torch.py --full --steps 60`` on the card (8
+    layers, d_model 768, ``TRAIN_EXAMPLE_STEPS`` steps of 8 x 256 tokens,
+    int8 gradient compression, 2 microbatches, a crash at step 30, a
+    checkpoint every 10 steps): one restart, the last step reached, the loss lowered; ms a step and
+    tokens/s over the run's steps (replays included; the checkpoints'
+    writes and the restore inside the time); K6 / K10 and K8 / K11
+    launched (counts set to 0 before the run, read after)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    ex = _example("train_ft_lm_torch")
+    cfg, steps, batch, seq = ex.model_config(full=True,
+                                             steps=TRAIN_EXAMPLE_STEPS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), torch.float32)
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="tardis_ckpt_") as d:
+        out, stragglers, dt = ex.run(cfg, params,
+                                     ex.train_config(steps, batch, seq, d),
+                                     "cuda")
+    counts = {k: n for k, n in launch_counts().items() if n}
+    n = len(out["losses"])
+    log(f"training example --full --steps {steps} on {smi}: {steps} steps "
+        f"of {batch} x "
+        f"{seq} tokens, {out['restarts']} restart(s), final step "
+        f"{out['final_step']}, {n} steps run in {dt:.2f} s = "
+        f"{dt / n * 1e3:.3f} ms a step, {n * batch * seq / dt:.1f} tokens/s; "
+        f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; "
+        f"{len(stragglers)} straggler steps; launches {counts}")
+    assert out["restarts"] == 1 and out["final_step"] == steps
+    missing = [k for k in TRAIN_KERNELS if k not in counts]
+    assert not missing, f"kernels never launched by the example: {missing}"
+    assert out["losses"][-1] < out["losses"][0], "did not learn"
+    del out, params
+    torch.cuda.empty_cache()
+
+
+# check.sh's CLI smokes on the card: (argv, sanitize, the patterns its
+# grep -Eq finds in the printed report)
+CLI_SMOKES = (
+    ("moe", ["--arch", "kimi-k2-1t-a32b", "--replicas", "2", "--requests",
+             "6", "--max-new", "2", "--max-batch", "2"], False,
+     (r"pool_tokens_appended_dense +[1-9]",
+      r"pool_tokens_appended_moe +[1-9]")),
+    ("2-host", ["--arch", "tinyllama-1.1b", "--hosts", "2", "--replicas",
+                "1", "--requests", "6", "--max-new", "2", "--prefix-len",
+                "16", "--prefix-block", "4", "--decode-pages", "64",
+                "--max-pages", "16", "--max-batch", "2"], True,
+     (r"host1_prefix_prefill_tokens_skipped +[1-9]",
+      r"host1_xhost_pages_fetched +[1-9]", r"xhost_multicasts +0",
+      r"xhost_invalidation_msgs +0")),
+    ("prefill/decode", ["--arch", "tinyllama-1.1b", "--roles",
+                        "prefill,decode", "--replicas", "1", "--requests",
+                        "6", "--max-new", "2", "--prefix-len", "16",
+                        "--prefix-block", "4", "--decode-pages", "64",
+                        "--max-pages", "16", "--max-batch", "2"], True,
+     (r"host1_role_cold_prefills +0", r"host0_role_prefill_jobs +[1-9]",
+      r"host1_prefix_prefill_tokens_skipped +[1-9]",
+      r"xhost_notifies +[1-9]", r"xhost_multicasts +0")),
+)
+
+
+def phase3_cli_smokes(smi):
+    """``scripts/check.sh``'s CLI smokes through the port's entry points:
+    the one-cell dry run (``launch.dryrun.main``: an ok cell, flops_total >
+    0) and the moe, 2-host and prefill/decode serves on the card
+    (``launch.serve.main`` without ``--device``), each with check.sh's
+    argv and its assertions on the printed report."""
+    import io
+    import re
+    import tempfile
+    from repro_torch.launch import dryrun, serve
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "dry.json")
+        assert dryrun.main(["--mesh", "single", "--archs", "tinyllama-1.1b",
+                            "--shapes", "decode_32k", "--no-hlo", "--out",
+                            out]) == 0
+        recs = json.loads(Path(out).read_text())
+    ok = [r for r in recs if r["status"] == "ok"]
+    assert ok and any(r.get("flops_total", 0) > 0 for r in ok), recs
+    log(f"dry-run smoke: {len(ok)} ok cell(s), flops_total "
+        f"{ok[0]['flops_total']:.4g}")
+    for name, argv, sanitize, patterns in CLI_SMOKES:
+        buf = io.StringIO()
+        with patch.dict(os.environ,
+                        {"TARDIS_SANITIZE": "1" if sanitize else "0"}), \
+                contextlib.redirect_stdout(buf):
+            done, report = serve.main(argv)
+        text = buf.getvalue()
+        missing = [p for p in patterns if not re.search(p, text)]
+        assert not missing, f"{name} serve smoke: {missing}\n{text}"
+        assert all(r.done for r in done)
+        log(f"{name} serve smoke on {smi}: {text.splitlines()[0]}; "
+            + ", ".join(" ".join(re.search(p, text).group(0).split())
+                        for p in patterns))
+
 
 
 # The training path: ``runtime.train`` on full-width, full-depth
@@ -2958,6 +3340,53 @@ def phase4_card_vs_cpu(smi, seed=SEED, hold=True, memo=None, card="cuda",
     return dict(old_ratio=ratio, old_ok=not bad and ratio <= 1, **new)
 
 
+def decoder_phase4_config(arch):
+    """Phase 4's lane of a decoder configuration: its attention geometry
+    (heads, kv heads, Dh), RoPE / M-RoPE settings and d_model kept; depth
+    cut to 2, vocab to 32000, every MLP width (d_ff; arctic's experts' and
+    its dense residual's) to 16 and arctic's 128 experts to 16 (top-2
+    kept), so that the CPU's fp32 anchor fits beside its bf16 run."""
+    cfg = decoder_config(arch, 2)
+    cut = dict(vocab=32000, d_ff=16 if cfg.d_ff else 0)
+    if cfg.n_experts:
+        cut.update(n_experts=16, d_ff_expert=16,
+                   residual_ff=16 if cfg.residual_ff else 0)
+    return dataclasses.replace(cfg, **cut)
+
+
+def phase4_decoder_lanes(smi, card="cuda"):
+    """One teacher-forced paged lane per decoder configuration
+    (``decoder_phase4_config``), bf16 weights from seed 0 (norm weights
+    drawn too), the paged traffic: the card against the CPU's bf16 run
+    and an fp32 anchor, held to ``norm_check`` (``_teacher_forced``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import param_leaves
+    from repro_torch.runtime import Request
+    for arch, _depth in DECODERS:
+        t0 = time.perf_counter()
+        cfg = decoder_phase4_config(arch)
+        params = _phase4_params(cfg, SEED)
+        n_par = sum(t.numel() for t in param_leaves(params))
+        label = (f"card vs cpu ({smi}; {arch}: d_model {cfg.d_model}, "
+                 f"{cfg.n_heads} / {cfg.n_kv_heads} heads, Dh "
+                 f"{cfg.head_dim()}, {cfg.n_layers} layers, vocab "
+                 f"{cfg.vocab}, d_ff {cfg.d_ff}"
+                 + (f", {cfg.n_experts} experts top-{cfg.top_k}, expert / "
+                    f"residual d_ff {cfg.d_ff_expert} / {cfg.residual_ff}"
+                    if cfg.n_experts else "")
+                 + f"; {n_par / 1e9:.3f} B params, fp32 anchor "
+                 f"{4 * n_par / 1e9:.2f} GB)")
+        _teacher_forced(label, "paged", cfg, params,
+                        _requests(Request, np, cfg.vocab), card, True, None,
+                        (arch, SEED))
+        del params
+        gc.collect()
+        if card == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[{arch} lane: {time.perf_counter() - t0:.1f} s]")
+
+
 def phase4_fleet_card_vs_cpu(smi, seed=SEED, hold=True, card="cuda",
                              cfg=None):
     """Fleet A (``FLEETS``) at full width and 2 layers (or ``cfg``), bf16
@@ -3029,7 +3458,7 @@ def phase4_wave_card_vs_cpu(smi, seed=SEED, hold=True, memo=None,
     from repro_torch.runtime import Request
     short = dict(lo=24, hi=48, max_new=8, seed=seed)
     out = {}
-    for (arch, kw), n_layers, dtype in zip(
+    for (arch, _depth, kw), n_layers, dtype in zip(
             WAVE_PATHS, (2, 6), (torch.bfloat16, torch.float32)):
         if archs is not None and arch not in archs:
             continue
@@ -3249,6 +3678,9 @@ WHISPER_HEADS, WHISPER_DH = 20, 64     # 20 query heads over 20 KV heads
 # 4-token decoder prompt, 64 new tokens each (the prefill's and 63 decode
 # steps'), caches of 448 slots (whisper's text context), bf16 weights
 WS_CLIPS, WS_FRAMES, WS_PROMPT, WS_NEW, WS_CACHE = 4, 1500, 4, 64, 448
+# ... served at full width and this many of its 32 encoder and 32
+# decoder layers, so that the script keeps within its time limit
+WS_LAYERS = 16
 # training: 2 clips of 1500 frames, 448 target tokens, 3 steps, fp32
 WT_CLIPS, WT_FRAMES, WT_TOKENS, WT_STEPS = 2, 1500, 448, 3
 WHISPER_KERNELS = ("flash_prefill", "rmsnorm")
@@ -3462,8 +3894,7 @@ def _whisper_generate(cfg, params, batch, n_new, cache_len, windows=None):
 def _profile_kinds(prof):
     """(device busy s, device ms by kind) of a ``torch.profiler`` run."""
     from torch.autograd import DeviceType
-    dev_rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+    dev_rows = profile_rows(prof, DeviceType.CUDA)
     busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
     kinds = {}
     for e in dev_rows:
@@ -3490,12 +3921,13 @@ def _whisper_norms(cfg, prefill):
 
 
 def phase3_whisper_serve(smi, card="cuda"):
-    """Serving whisper-large-v3 at full width and depth on the card (random
-    bf16 weights from seed 0): 4 clips of 1500 frames through ``prefill``
-    and greedy ``decode_step``s to 64 tokens each.  The launch counts set
-    to 0 before the first run and read after (K6 and K8); the per-prefill
-    and per-step counts held (K6: 96 a prefill -- 32 encoder, 32 decoder
-    and 32 cross-attentions -- and 32 a step, the cross-attention, all on
+    """Serving whisper-large-v3 at full width and ``WS_LAYERS`` encoder and
+    decoder layers on the card (random bf16 weights from seed 0): 4 clips
+    of 1500 frames through ``prefill`` and greedy ``decode_step``s to 64
+    tokens each.  The launch counts set to 0 before the first run and
+    read after (K6 and K8); the per-prefill and per-step counts held (K6:
+    3 a layer a prefill -- encoder, decoder and cross-attention -- and 1
+    a layer a step, the cross-attention, all on
     "wgmma"; the decoder's self-attention over its 448-slot cache takes the
     plain dense path, as in JAX); tokens/s of the first and a warm run;
     a warm run under ``torch.profiler``.  Returns (counts, variants)."""
@@ -3508,7 +3940,8 @@ def phase3_whisper_serve(smi, card="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(WHISPER)
+    cfg = dataclasses.replace(get_arch(WHISPER), n_layers=WS_LAYERS,
+                              n_enc_layers=WS_LAYERS)
     params = init_params(cfg, torch.Generator(device=card).manual_seed(
         SEED), torch.bfloat16)
     n_par = sum(t.numel() for t in param_leaves(params))
@@ -3527,8 +3960,8 @@ def phase3_whisper_serve(smi, card="cuda"):
     _t2, _l2, _s = _whisper_generate(cfg, params, batch, 2, WS_CACHE,
                                      windows)
     assert torch.equal(_t2, toks[:, :2]) and torch.equal(_t, toks)
-    log(f"whisper serving on {smi}: {WHISPER} full width and depth "
-        f"({cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+    log(f"whisper serving on {smi}: {WHISPER} full width "
+        f"({cfg.n_enc_layers} + {cfg.n_layers} of its 32 + 32 layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, vocab "
         f"{cfg.vocab}, {n_par / 1e9:.3f} B bf16 params), {WS_CLIPS} clips "
         f"of {WS_FRAMES} frames, a {WS_PROMPT}-token prompt, {WS_NEW} new "
@@ -4357,6 +4790,16 @@ def main() -> int:
     stamp("phase 3 (wave paths)")
     kimi_counts = phase3_kimi_path(smi)
     stamp("phase 3 (kimi-k2 paged path)")
+    decoder_counts = phase3_decoder_paths(smi)
+    stamp("phase 3 (the decoder configurations' paged paths)")
+    phase3_serving_example(smi)
+    stamp("phase 3 (serving example)")
+    phase3_elastic_example(smi)
+    stamp("phase 3 (elastic example)")
+    phase3_training_example(smi)
+    stamp("phase 3 (training example --full)")
+    phase3_cli_smokes(smi)
+    stamp("phase 3 (CLI smokes)")
     train_counts = phase3_train_path(smi)
     stamp("phase 3 (training path)")
     ssm_train_counts = {}
@@ -4376,6 +4819,8 @@ def main() -> int:
     stamp("phase 4 (fleet A lane)")
     phase4_card_vs_cpu(smi, lane="kimi")
     stamp("phase 4 (kimi-k2 paged lane)")
+    phase4_decoder_lanes(smi)
+    stamp("phase 4 (the decoder configurations' lanes)")
     phase4_wave_card_vs_cpu(smi)
     stamp("phase 4 (wave paths)")
     phase4_train_card_vs_cpu(smi)
@@ -4392,11 +4837,12 @@ def main() -> int:
             "library_ms", "call_ms", "launch_ms", "shape", "variant",
             "unfused_ms", "floor_ms")
     # each kernel's launches on the path its row names (K1-K4: the paged
-    # main path; K10 and K11: the training path; K12 and K11's gate: the
+    # main path; K4 and K6 at the decoder configurations' shapes: their
+    # paged paths; K10 and K11: the training path; K12 and K11's gate: the
     # zamba2 / mamba2 training paths); K8's, K10's and K11's rows count
     # their variant's
-    # (arctic's K4 row: no path serves arctic on the card, 0 launches)
     path_counts = {"paged": (counts, variants), KIMI: kimi_counts,
+                   **decoder_counts,
                    "simulator": sim_counts, "train": train_counts,
                    "whisper": whisper_counts,
                    "whisper_train": whisper_train_counts,

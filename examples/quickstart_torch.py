@@ -2,21 +2,27 @@
 
 1. run the paper's Listing-1 litmus through the coherence simulator,
 2. compare Tardis vs. full-map MSI on a SPLASH-2-like workload,
-3. use the TardisStore to share versioned objects without invalidations.
+3. use the TardisStore to share versioned objects without invalidations,
+4. train a tiny LM for a few steps with the fault-tolerant loop.
 
 On the card each simulation is one launch of K9, the simulator's whole
-loop; ``--device cpu`` runs its plain loop instead.  The JAX package's
-quickstart (``examples/quickstart.py``) also trains a tiny LM; the port
-has no training loop yet, so that part is left out here.
+loop, and training runs the flash-attention and RMSNorm kernels with
+their backward; ``--device cpu`` runs their plain versions instead.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 """
 import argparse
 
+import torch
+
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core import SimConfig, make_trace, simulate
 from repro_torch.core.check import check_sc
 from repro_torch.core.store import Replica, TardisStore
 from repro_torch.core.traces import _Builder
+from repro_torch.device import pick_device
+from repro_torch.models import init_params
+from repro_torch.runtime import TrainConfig, train
 
 
 def litmus(device):
@@ -67,6 +73,25 @@ def store_demo():
           f"(directory would have sent {s.dir_invalidations} invalidations)\n")
 
 
+TINY_LM = dict(n_layers=2, d_model=64, vocab=128)
+
+
+def tiny_training(device, params=None):
+    """Part 4: 20 steps of ``runtime.train`` on a tiny LM, fp32 weights
+    drawn from seed 0 unless ``params`` are given.  Returns the loop's
+    summary."""
+    print("== 4. fault-tolerant training (tiny LM, 20 steps) ==")
+    cfg = reduced(get_arch("tinyllama-1.1b"), **TINY_LM)
+    if params is None:
+        dev = pick_device(device)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             torch.float32)
+    out = train(cfg, params, TrainConfig(steps=20, batch=4, seq=32),
+                device=device)
+    print(f"   loss: {out['losses'][0]:.3f} -> {out['losses'][-1]:.3f}\n")
+    return out
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
@@ -75,6 +100,5 @@ if __name__ == "__main__":
     litmus(dev)
     protocol_comparison(dev)
     store_demo()
-    print("== 4. fault-tolerant training: left out (the port has no "
-          "training loop yet) ==\n")
+    tiny_training(dev)
     print("quickstart complete.")

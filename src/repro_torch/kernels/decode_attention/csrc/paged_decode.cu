@@ -8,8 +8,9 @@
 // p_max * chunk) through page_rows[b, pos / chunk] * chunk + pos % chunk;
 // K and V of kv head h are read at columns k_off + h*dh / v_off + h*dh of
 // each pool token row; the softmax runs in fp32 and the output is written
-// in q's dtype.  q and the pool share one dtype, float32 or bfloat16 (the
-// serving path runs bf16).  The TPU kernel walked all P (clamped)
+// in q's dtype.  q and the pool are float32 or bfloat16, one dtype or an
+// fp32 q over a bf16 pool (the serving path runs bf16; fp32 weights put
+// their KV in the engine's bf16 pool).  The TPU kernel walked all P (clamped)
 // page-table entries; this one reads only the entries of live pages.
 // Masked positions added exactly 0 there, so the result is the same.
 //
@@ -46,7 +47,8 @@
 // * One merge at the end: across the warps through shared memory, then
 //   across the cluster's CTAs through distributed shared memory behind
 //   one cluster barrier (finish_cluster, tardis_hopper.cuh).
-// The fp32 pair, and bf16 at any other Dh, run the SIMT variant.
+// The fp32 pair, an fp32 q over a bf16 pool, and bf16 at any other Dh run
+// the SIMT variant.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +57,7 @@
 
 namespace {
 
-// ---- the SIMT variant (fp32; bf16 at Dh the tensor-core variant lacks) ----
+// ---- the SIMT variant (fp32 q; bf16 at Dh the tensor-core variant lacks) --
 
 constexpr int kTile = 32;
 
@@ -380,7 +382,8 @@ int try_mma(const void* q, const void* ck, const void* cv, const void* pool,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; q and the pool share one.
+// dtype codes: 0 = float32, 1 = bfloat16; q and the pool share one, or q
+// is float32 over a bfloat16 pool (SIMT only; cur_k / cur_v in the pool's).
 // variant: 0 the SIMT kernel (any dh <= 256; n_split unused), 1 the
 // tensor-core kernel with 16-byte asynchronous copies (bf16, dh a multiple
 // of 16 up to 128; the pool, token_row * 2, k_off * 2 and v_off * 2 bytes
@@ -397,14 +400,18 @@ extern "C" int tardis_paged_decode(const void* q, const void* cur_k,
                                    void* out, void* stream) {
   if (b == 0 || hkv == 0 || g == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (q_dtype != pool_dtype || chunk <= 0 || p_max <= 0)
+  if ((q_dtype == 1 && pool_dtype != 1) || chunk <= 0 || p_max <= 0)
     return (int)cudaErrorInvalidValue;
   if (variant == 0) {
-    if (q_dtype == 0)
+    if (pool_dtype == 0)
       return launch_simt<float, float>(q, cur_k, cur_v, pool, page_rows,
                                        lengths, b, hkv, g, dh, chunk, p_max,
                                        token_row, k_off, v_off, scale, out,
                                        s);
+    if (q_dtype == 0)
+      return launch_simt<float, __nv_bfloat16>(
+          q, cur_k, cur_v, pool, page_rows, lengths, b, hkv, g, dh, chunk,
+          p_max, token_row, k_off, v_off, scale, out, s);
     return launch_simt<__nv_bfloat16, __nv_bfloat16>(
         q, cur_k, cur_v, pool, page_rows, lengths, b, hkv, g, dh, chunk,
         p_max, token_row, k_off, v_off, scale, out, s);

@@ -15,9 +15,10 @@ K5 ``dense_decode`` (``csrc/dense_decode.cu``) replaces
 
 On CUDA tensors each wrapper launches its kernel and counts the launch; on
 CPU tensors it runs the plain version.  K4 takes q and the pool in one
-dtype (float32 or bfloat16); K5 also takes a float32 q over bfloat16
-caches (what the wave path makes from fp32 weights).  The plain versions
-take any mix.
+dtype (float32 or bfloat16) or a float32 q over a bfloat16 pool (what the
+paged path makes from fp32 weights: the engine's pool is bf16), the last
+on its SIMT variant; K5 also takes a float32 q over bfloat16 caches (what
+the wave path makes from fp32 weights).  The plain versions take any mix.
 """
 from __future__ import annotations
 
@@ -82,9 +83,9 @@ def paged_decode(q, cur_k, cur_v, pool_rows, page_rows, lengths, *,
             cur_v.reshape(b, 1, hkv, dh), pool_rows, page_rows, lengths,
             chunk=chunk, k_off=k_off, v_off=v_off, hkv=hkv)
         return out.reshape(b, hkv, g, dh)
-    if q.dtype != pool_rows.dtype:
+    if (q.dtype, pool_rows.dtype) == (torch.bfloat16, torch.float32):
         raise TypeError("the paged_decode kernel takes q and the pool in "
-                        "one dtype")
+                        "one dtype, or a float32 q over a bfloat16 pool")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode needs contiguous operands")
     p_max = page_rows.shape[1]
@@ -113,7 +114,8 @@ def paged_variant(dtype, dh: int, pool_ptr: int, token_row: int, k_off: int,
     with 16-byte asynchronous copies) for the bf16 pair at Dh a multiple
     of 16 up to 128 with the pool, the token row and the K / V columns
     16-byte aligned; "mma_plain" (the same with plain loads) where one of
-    them is not; "simt" for the fp32 pair and any other Dh."""
+    them is not; "simt" for a float32 q (over either pool) and any other
+    Dh.  ``dtype`` is q's."""
     if dtype != torch.bfloat16 or dh % 16 or dh > 128:
         return "simt"
     aligned = pool_ptr % 16 == 0 and not (token_row % 8 or k_off % 8

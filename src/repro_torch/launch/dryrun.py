@@ -158,7 +158,9 @@ def _unplaceable(func, args, kwargs, err) -> str:
     if func.overloadpacket.__name__ in _VIEWS and \
             isinstance(err, (RuntimeError, ValueError)) and \
             ("is invalid for input of size" in msg
-             or "Cannot view a tensor" in msg):
+             or "Cannot view a tensor" in msg
+             # torch 2.11's words for a view that splits a sharded dim
+             or "Attempted to split the sharded dimension" in msg):
         return "view of a sharded dim"
     if isinstance(err, DataDependentOutputException):
         return "data-dependent offsets"

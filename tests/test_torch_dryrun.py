@@ -95,6 +95,23 @@ def test_fallback_replicates_an_unplaceable_operator(host_mesh):
     assert sum(comm.counts.values()) == 0
 
 
+@pytest.mark.parametrize("msg", [
+    "shape '[128, 1, 4, 64]' is invalid for input of size 2048",
+    "Cannot view a tensor with shape torch.Size([128, 1, 256])",
+    # torch 2.11's words, on tinyllama's decode_32k cell
+    "('Attempted to split the sharded dimension 2 into multiple "
+    "subdimensions. ', 'It cannot be performed without redistribution, "
+    "which is disallowed by the current operator.')"])
+def test_a_view_that_splits_a_sharded_dim_is_unplaceable(msg):
+    """Each torch version's words for a view DTensor cannot place give the
+    same reason; the same words from another operator are a fault."""
+    view = torch.ops.aten.view.default
+    assert D._unplaceable(view, (), {}, RuntimeError(msg)) == \
+        "view of a sharded dim"
+    assert D._unplaceable(torch.ops.aten.mm.default, (), {},
+                          RuntimeError(msg)) == ""
+
+
 def test_fallback_raises_a_genuine_fault(host_mesh):
     """An error that is not one of DTensor's placement limits (here a
     shape mismatch) propagates: it is not retried on replicated inputs."""

@@ -201,7 +201,10 @@ def cuda():
     (3, 6, 2, 16, 4, 8, 3), (2, 4, 4, 128, 8, 16, 4),
     (8, 32, 4, 64, 16, 64, 32),
     # kimi-k2's attention (G 8, Dh 112) and arctic's (G 7, Dh 128)
-    (8, 64, 8, 112, 16, 64, 8), (4, 56, 8, 128, 16, 64, 8)])
+    (8, 64, 8, 112, 16, 64, 8), (4, 56, 8, 128, 16, 64, 8),
+    # glm4's (G 16 over 2 kv heads) and llama3's (G 16 over 8), Dh 128:
+    # two 8-head chunks a (request, kv head)
+    (8, 32, 2, 128, 16, 64, 8), (4, 128, 8, 128, 16, 64, 8)])
 def test_cuda_paged_decode_matches_plain(cuda, dtype, tol, b, h, hk, d,
                                          chunk, nb, p):
     arrs, k_off, v_off = _paged_inputs(b, h, hk, d, chunk, nb, p, 22, 21,
@@ -222,16 +225,46 @@ def test_cuda_paged_decode_matches_plain(cuda, dtype, tol, b, h, hk, d,
 
 @pytest.mark.cuda
 def test_cuda_paged_decode_rejects_mixed_dtypes(cuda):
+    """A bf16 q over an fp32 pool is refused (no launch); an fp32 q over a
+    bf16 pool -- what fp32 weights make on the paged path -- is taken by
+    ``test_cuda_paged_decode_fp32_q_over_bf16_pool``."""
     b, h, hk, d, chunk = 2, 4, 2, 16, 4
     arrs, k_off, v_off = _paged_inputs(b, h, hk, d, chunk, 8, 3, 22, 21, 0)
     q, ck, cv, pool, pr, ln = (torch.from_numpy(a).to(cuda) for a in arrs)
-    ck, cv, pool = (x.to(torch.bfloat16) for x in (ck, cv, pool))
+    q = q.to(torch.bfloat16)
     n0 = DK.paged_decode.launches
     with pytest.raises(TypeError):
         DK.paged_decode(q.reshape(b, hk, h // hk, d), ck.reshape(b, hk, d),
                         cv.reshape(b, hk, d), pool, pr, ln, chunk=chunk,
                         k_off=k_off, v_off=v_off)
     assert DK.paged_decode.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,d,chunk,nb,p", [
+    (2, 4, 2, 16, 4, 8, 3), (8, 32, 4, 64, 16, 64, 32),
+    (4, 32, 2, 128, 16, 64, 8)])
+def test_cuda_paged_decode_fp32_q_over_bf16_pool(cuda, b, h, hk, d, chunk,
+                                                 nb, p):
+    """The serving path with fp32 weights: an fp32 q over the engine's bf16
+    pool (the current token's K / V in the pool's dtype) runs the SIMT
+    variant, within 2e-4 of the plain version, its output fp32."""
+    arrs, k_off, v_off = _paged_inputs(b, h, hk, d, chunk, nb, p, 22, 21,
+                                       b + d)
+    q, ck, cv, pool, pr, ln = (torch.from_numpy(a).to(cuda) for a in arrs)
+    ck, cv, pool = (x.to(torch.bfloat16) for x in (ck, cv, pool))
+    g = h // hk
+    before = dict(DK.paged_decode.variants)
+    got = DK.paged_decode(q.reshape(b, hk, g, d), ck.reshape(b, hk, d),
+                          cv.reshape(b, hk, d), pool, pr, ln, chunk=chunk,
+                          k_off=k_off, v_off=v_off)
+    assert DK.paged_decode.variants.get("simt", 0) == \
+        before.get("simt", 0) + 1
+    assert got.dtype == torch.float32
+    want = paged_decode_attention_ref(q, ck, cv, pool, pr, ln, chunk=chunk,
+                                      k_off=k_off, v_off=v_off, hkv=hk)
+    torch.testing.assert_close(got.reshape(b, 1, h, d), want.float(),
+                               rtol=2e-4, atol=2e-4)
 
 
 BF16_ULP = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step apart

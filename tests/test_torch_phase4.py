@@ -174,3 +174,43 @@ def test_fleet_lane_holds_with_the_cpu_in_the_cards_place():
                                     cfg=TINY)
     assert r["counters_ok"] and r["agree"] == r["tokens"] > 0
     assert r["old_ratio"] == pytest.approx(0.0)
+
+
+@pytest.mark.parametrize("arch,depth", cs.DECODERS)
+def test_decoder_configurations_fit_the_card(arch, depth):
+    """Phase 3's decoder configurations at full width: bf16 weights and
+    the serving pool (4608 blocks of 16 token rows) at the card's depth
+    fit one H100's 80 GB with room for the run (under 60 GB), and the
+    published depth is cut only where they would not."""
+    cfg = cs.decoder_config(arch, depth)
+    full = get_arch(arch)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim(),
+            cfg.vocab, cfg.n_experts) == (full.d_model, full.n_heads,
+                                          full.n_kv_heads, full.head_dim(),
+                                          full.vocab, full.n_experts)
+
+    def gb(c):
+        pool = 4608 * 16 * 2 * c.n_layers * c.n_kv_heads * c.head_dim()
+        return 2 * (c.param_count() + pool) / 1e9
+    assert gb(cfg) < 60
+    assert depth == full.n_layers or gb(cs.decoder_config(
+        arch, full.n_layers)) > 80
+
+
+@pytest.mark.parametrize("arch,depth", cs.DECODERS)
+def test_decoder_lane_cuts_keep_the_attention(arch, depth):
+    """Phase 4's lane of each decoder configuration keeps its attention
+    geometry, RoPE settings and d_model; depth 2, vocab 32000, every MLP
+    width 16 and arctic's experts 16 (top-2 kept)."""
+    full = get_arch(arch)
+    cfg = cs.decoder_phase4_config(arch)
+    keep = ("d_model", "n_heads", "n_kv_heads", "d_head", "rope_theta",
+            "mrope", "top_k", "family")
+    assert all(getattr(cfg, k) == getattr(full, k) for k in keep)
+    assert (cfg.n_layers, cfg.vocab) == (2, 32000)
+    assert cfg.d_ff == (16 if full.d_ff else 0)
+    if full.n_experts:
+        assert (cfg.n_experts, cfg.d_ff_expert, cfg.residual_ff) == \
+            (16, 16, 16)
+    # the CPU's fp32 anchor: llama3's d_model 16384 makes the largest
+    assert 4 * cfg.param_count() / 1e9 < 9
