@@ -36,6 +36,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import DeviceLike, pick_device
 from ..kernels.tardis_lease import ops as lease_ops
 from . import protocol, timestamps
@@ -212,8 +213,10 @@ class LeaseEngine:
             return self._pred_lease
         return np.int32(self.lease)
 
-    def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device)
+    def _dev(self, a, site: str) -> torch.Tensor:
+        """Host data onto the engine's device, one ``host.syncs`` at
+        ``site``."""
+        return obs.to_device(np.asarray(a), self.device, site)
 
     def set_tables(self, wts, rts) -> None:
         """Load externally computed ``(wts, rts)`` tables (resets the
@@ -223,8 +226,8 @@ class LeaseEngine:
         if (wts > rts).any():
             raise ValueError("set_tables: wts > rts")
         if self.backend == "device":
-            self._wts = self._dev(wts)
-            self._rts = self._dev(rts)
+            self._wts = self._dev(wts, "lease.set_tables")
+            self._rts = self._dev(rts, "lease.set_tables")
         else:
             self._wts = wts.copy()
             self._rts = rts.copy()
@@ -540,15 +543,18 @@ class LeaseEngine:
                                    for r in np.ravel(req_wts)], np.int32)
         if self.backend == "device":
             out = lease_ops.masked_lease_check(
-                self._wts, self._rts, self._dev(req), self._dev(mask),
-                np.int32(pts), self._lease_arg())
+                self._wts, self._rts, self._dev(req, "lease.read.req"),
+                self._dev(mask, "lease.read.mask"), np.int32(pts),
+                self._lease_arg())
             self._rts = out["new_rts"]
-            ti = self._dev(idx)
+            ti = self._dev(idx, "lease.read.ids")
             expired, renew_ok, wts_at, rts_at = (
-                x[ti].cpu().numpy() for x in (out["expired"],
-                                              out["renew_ok"], self._wts,
-                                              self._rts))
-            new_pts = int(out["new_pts"])
+                obs.to_host(x[ti], site).numpy() for x, site in (
+                    (out["expired"], "lease.read.expired"),
+                    (out["renew_ok"], "lease.read.renew_ok"),
+                    (self._wts, "lease.read.wts"),
+                    (self._rts, "lease.read.rts")))
+            new_pts = int(obs.to_host(out["new_pts"], "lease.read.new_pts"))
         else:
             m = mask.astype(bool)
             lv = self._lease_arg()
@@ -580,6 +586,10 @@ class LeaseEngine:
         requester and fan back out.  With a shared ``pts`` the table state
         and ``max(new_pts)`` equal issuing the G reads back to back.
         """
+        with obs.span("lease.read_many"):
+            return self._read_many(groups, pts, req_wts)
+
+    def _read_many(self, groups, pts, req_wts) -> ReadManyResult:
         groups = [_as_np_ids(g) for g in groups]
         n_groups = len(groups)
         pts_vec = np.broadcast_to(np.asarray(pts, np.int32),
@@ -612,15 +622,19 @@ class LeaseEngine:
                     np.int32)
         if self.backend == "device":
             out = lease_ops.masked_lease_check_many(
-                self._wts, self._rts, self._dev(req), self._dev(masks),
-                pts_rows, self._lease_arg())
+                self._wts, self._rts, self._dev(req, "lease.read_many.req"),
+                self._dev(masks, "lease.read_many.masks"), pts_rows,
+                self._lease_arg())
             self._rts = out["new_rts"]
-            tu = self._dev(union_idx)
-            expired = out["expired"][:, tu].cpu().numpy()
-            renew_ok = out["renew_ok"][:, tu].cpu().numpy()
-            wts_at = self._wts[tu].cpu().numpy()
-            rts_at = self._rts[tu].cpu().numpy()
-            new_pts = out["new_pts"].cpu().numpy()
+            tu = self._dev(union_idx, "lease.read_many.ids")
+            expired = obs.to_host(out["expired"][:, tu],
+                                  "lease.read_many.expired").numpy()
+            renew_ok = obs.to_host(out["renew_ok"][:, tu],
+                                   "lease.read_many.renew_ok").numpy()
+            wts_at = obs.to_host(self._wts[tu], "lease.read_many.wts").numpy()
+            rts_at = obs.to_host(self._rts[tu], "lease.read_many.rts").numpy()
+            new_pts = obs.to_host(out["new_pts"],
+                                  "lease.read_many.new_pts").numpy()
         else:
             m = masks.astype(bool)
             lv = self._lease_arg()
@@ -660,7 +674,8 @@ class LeaseEngine:
         union = sorted({int(b) for g in groups for b in _as_np_ids(g)})
         if not union:
             return int(pts)
-        return self.write(np.asarray(union, np.int64), pts)
+        with obs.span("lease.write_many"):
+            return self.write(np.asarray(union, np.int64), pts)
 
     def write(self, idx, pts: int) -> int:
         """Writer jump-ahead (Table I store): ``ts = max(pts, max(rts[idx])
@@ -672,8 +687,9 @@ class LeaseEngine:
         mask[idx] = 1
         if self.backend == "device":
             self._wts, self._rts, ts = lease_ops.write_advance(
-                self._wts, self._rts, self._dev(mask), int(pts))
-            ts = int(ts)
+                self._wts, self._rts, self._dev(mask, "lease.write.mask"),
+                int(pts))
+            ts = int(obs.to_host(ts, "lease.write.ts"))
         else:
             m = mask.astype(bool)
             top = int(np.where(m, self._rts, -1).max(initial=-1))
@@ -701,7 +717,8 @@ class LeaseEngine:
         """Shift the whole table down when timestamps approach
         2**ts_bits; returns the shift (0 when none was needed)."""
         if self.backend == "device":
-            max_ts = int(self._rts.max()) if self.n_blocks else 0
+            max_ts = (int(obs.to_host(self._rts.max(), "rebase.max_ts"))
+                      if self.n_blocks else 0)
         else:
             max_ts = int(np.max(self._rts, initial=0))
         if not timestamps.rebase_needed(max_ts, 0, self.ts_bits):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import obs
 from . import kernel as K
 from .kernel import LANES
 
@@ -20,15 +21,18 @@ __all__ = ["LANES", "masked_lease_check", "masked_lease_check_many",
            "write_advance", "lease_check", "gather_blocks", "append_rows"]
 
 
-def _i32(x, device):
+def _i32(x, device, site: str):
+    """``x`` as an int32 tensor on ``device``; host data is copied through
+    ``obs.to_device``, one ``host.syncs`` at ``site``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32).contiguous()
-    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+    return obs.to_device(np.asarray(x, np.int32), device, site)
 
 
 def _lease(lease, device):
     if isinstance(lease, torch.Tensor) or np.ndim(lease):
-        return _i32(lease, device)          # per-block predicted leases
+        # per-block predicted leases
+        return _i32(lease, device, "lease_check.lease")
     return int(lease)
 
 
@@ -43,8 +47,9 @@ def masked_lease_check_many(wts, rts, req_wts, masks, pts_vec, lease):
     """
     dev = wts.device
     new_rts, flags, write_ts, new_pts = K.lease_pass(
-        wts, rts, _i32(req_wts, dev), _i32(masks, dev), _i32(pts_vec, dev),
-        _lease(lease, dev))
+        wts, rts, _i32(req_wts, dev, "lease_check.req"),
+        _i32(masks, dev, "lease_check.masks"),
+        _i32(pts_vec, dev, "lease_check.pts"), _lease(lease, dev))
     return {"new_rts": new_rts,
             "renew_ok": (flags & 1).bool(),
             "expired": ((flags >> 1) & 1).bool(),
@@ -56,8 +61,9 @@ def masked_lease_check(wts, rts, req_wts, mask, pts, lease):
     """Lease-check / renew / extend the blocks selected by ``mask`` (the
     G == 1 case): ``renew_ok`` / ``expired`` are (N,), ``new_pts`` ()."""
     out = masked_lease_check_many(
-        wts, rts, req_wts, _i32(mask, wts.device).view(1, -1),
-        _i32([int(pts)], wts.device), lease)
+        wts, rts, req_wts,
+        _i32(mask, wts.device, "lease_check.masks").view(1, -1),
+        _i32([int(pts)], wts.device, "lease_check.pts"), lease)
     return {"new_rts": out["new_rts"], "renew_ok": out["renew_ok"][0],
             "expired": out["expired"][0], "write_ts": out["write_ts"],
             "new_pts": out["new_pts"][0]}
@@ -67,7 +73,8 @@ def write_advance(wts, rts, mask, pts):
     """Writer jump-ahead over ``mask``: ``ts = max(pts, max(masked rts) +
     1)``; ``wts = rts = ts`` on every masked block.  Returns (new_wts,
     new_rts, ts), all int32, ts still on the device."""
-    return K.write_advance(wts, rts, _i32(mask, wts.device), int(pts))
+    return K.write_advance(wts, rts, _i32(mask, wts.device,
+                                          "write_advance.mask"), int(pts))
 
 
 def lease_check(wts, rts, req_wts, pts, lease):
@@ -79,8 +86,8 @@ def lease_check(wts, rts, req_wts, pts, lease):
 def gather_blocks(pool, idx, col_lo: int = 0, width: int = None):
     """Materialize pool rows for leased block ids: pool (N, W), idx (n,);
     ``col_lo``/``width`` select one stack's LANES-aligned column window."""
-    return K.gather_rows(pool, _i32(idx, pool.device), col_lo=col_lo,
-                         width=width)
+    return K.gather_rows(pool, _i32(idx, pool.device, "gather_blocks.ids"),
+                         col_lo=col_lo, width=width)
 
 
 def append_rows(pool, idx, rows, col_lo: int = 0, width: int = None):
@@ -97,5 +104,5 @@ def append_rows(pool, idx, rows, col_lo: int = 0, width: int = None):
                              device=pool.device)
         padded[:, :rows.shape[1]] = rows.to(pool.dtype)
         rows = padded
-    return K.scatter_rows(pool, _i32(idx, pool.device), rows.contiguous(),
-                          col_lo=col_lo)
+    return K.scatter_rows(pool, _i32(idx, pool.device, "append_rows.ids"),
+                          rows.contiguous(), col_lo=col_lo)

@@ -60,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.lease_engine import LeaseEngine
 from ..core.policy import CoherencePolicy, resolve_policy
 from ..core.shard_directory import ShardedLeaseDirectory, page_on
@@ -731,24 +732,31 @@ class ServingCluster:
                 break                       # head-of-line: wait for pages
             budget -= need
             joiners.append(queue.popleft())
+            if obs.on:
+                obs.event("sched.admitted", req.rid)
         if not joiners:
             return
-        if act:
-            self.prefix_stats["paged_mid_batch_admissions"] += len(joiners)
-        self._admit_reserved = sum(self._pages_needed(j) for j in joiners)
-        # weight lease first: reuse only KV computed under the SAME weight
-        # version this admission's prefill will use
-        params = rep.params()
-        wver = rep.reader.cached_version("params")
-        plan = self._lease_prefix_wave(rep, [j.prompt for j in joiners])
-        mat_cache: Dict[Tuple[int, ...], Tuple] = {}
-        for ji, req in enumerate(joiners):
-            self._admit_reserved -= self._pages_needed(req)
-            s = self._admit_one(rep, req, plan, ji, params, wver, mat_cache,
-                                tick)
-            if s is not None:
-                act.append(s)
-        self._admit_reserved = 0
+        with obs.span("sched.admit"):
+            if act:
+                self.prefix_stats["paged_mid_batch_admissions"] += \
+                    len(joiners)
+            self._admit_reserved = sum(self._pages_needed(j)
+                                       for j in joiners)
+            # weight lease first: reuse only KV computed under the SAME
+            # weight version this admission's prefill will use
+            params = rep.params()
+            wver = rep.reader.cached_version("params")
+            with obs.span("lease.wave"):
+                plan = self._lease_prefix_wave(rep,
+                                               [j.prompt for j in joiners])
+            mat_cache: Dict[Tuple[int, ...], Tuple] = {}
+            for ji, req in enumerate(joiners):
+                self._admit_reserved -= self._pages_needed(req)
+                s = self._admit_one(rep, req, plan, ji, params, wver,
+                                    mat_cache, tick)
+                if s is not None:
+                    act.append(s)
+            self._admit_reserved = 0
 
     def _admit_one(self, rep: DecodeReplica, req: Request, plan: WavePlan,
                    ji: int, params, wver, mat_cache: Dict,
@@ -779,9 +787,9 @@ class ServingCluster:
                 ps["role_cold_prefills"] += 1
         cache_len = max(bt, -(-plen // bt) * bt)
         suffix = req.prompt[skip:]
-        toks = torch.as_tensor(
+        toks = obs.to_device(
             np.pad(suffix, (0, cache_len - skip - len(suffix)))[None],
-            device=self.device)
+            self.device, "admit.tokens")
         last = len(suffix) - 1
         if skip:
             key = tuple(bids[:covered])
@@ -792,28 +800,34 @@ class ServingCluster:
                             self.host_id, bid,           # be current
                             int(self.directory.tags[bid]))
             if key not in mat_cache:
-                mat_cache[key] = self._pool_to_stack_kv(
-                    self._read_kv_stacks(list(key)))
-            cache, logits = prefill_suffix(
-                self.cfg, params, {"tokens": toks},
-                _prefix_cache(self._stacks, mat_cache[key], 1, cache_len,
-                              skip),
-                skip, last_idx=last)
+                with obs.span("pool.read"):
+                    mat_cache[key] = self._pool_to_stack_kv(
+                        self._read_kv_stacks(list(key)))
+            with obs.span("model.prefill_suffix"):
+                cache, logits = prefill_suffix(
+                    self.cfg, params, {"tokens": toks},
+                    _prefix_cache(self._stacks, mat_cache[key], 1,
+                                  cache_len, skip),
+                    skip, last_idx=last)
             ps["prefix_prefill_tokens_skipped"] += skip
             ps["prefix_flops_saved"] += skip * self._flops_per_token
         else:
-            cache, logits = prefill(self.cfg, params, {"tokens": toks},
-                                    cache_len, last_idx=last)
+            with obs.span("model.prefill"):
+                cache, logits = prefill(self.cfg, params, {"tokens": toks},
+                                        cache_len, last_idx=last)
         # payload write-back: the blocks this request owns per the plan
         wb = [(bid, c) for bid, (ri, c) in plan.miss_writers.items()
               if ri == ji]
         wb += [(bid, c) for bid, (ri, c) in plan.repair_writers.items()
                if ri == ji and bid not in plan.miss_writers]
         if wb:
-            per_block = [self._cache_block_kv(cache, 0, c) for _, c in wb]
-            blocks = {s.pool: torch.stack([d[s.pool] for d in per_block])
-                      for s in self._stacks}
-            eng.write_kv([bid for bid, _ in wb], blocks)
+            with obs.span("pool.write_back"):
+                per_block = [self._cache_block_kv(cache, 0, c)
+                             for _, c in wb]
+                blocks = {s.pool: torch.stack([d[s.pool]
+                                               for d in per_block])
+                          for s in self._stacks}
+                eng.write_kv([bid for bid, _ in wb], blocks)
             self._pool_wver[[bid for bid, _ in wb]] = \
                 -1 if wver is None else int(wver)
             if self.directory is not None:
@@ -842,11 +856,16 @@ class ServingCluster:
         if own:
             self._pool_wver[own] = -1 if wver is None else int(wver)
         # the prompt's suffix KV lands in the own pages, token-granular
-        rows = self._cache_token_rows(cache, skip, plen)
-        pos = np.arange(skip, plen)
-        flat_idx = (page_row[pos // bt].astype(np.int64) * bt + pos % bt)
-        eng.append_kv(flat_idx, rows)
-        t0 = int(torch.argmax(logits[0, -1]))      # first index on a tie
+        with obs.span("pool.append"):
+            rows = self._cache_token_rows(cache, skip, plen)
+            pos = np.arange(skip, plen)
+            flat_idx = (page_row[pos // bt].astype(np.int64) * bt
+                        + pos % bt)
+            eng.append_kv(flat_idx, rows)
+        t0 = int(obs.to_host(torch.argmax(logits[0, -1]),   # first index
+                             "admit.first_token"))          # on a tie
+        if obs.on and req.max_new:
+            obs.emit(req.rid)
         stream = Stream(req=req, page_row=page_row, own_pages=own,
                         shared_bids=list(bids[:covered]), reloc_pages=[],
                         length=plen, emitted=[t0])
@@ -1021,41 +1040,50 @@ class ServingCluster:
                      tick: int) -> None:
         """One continuous-batch decode step: every active stream advances a
         token, all KV traffic through pool pages."""
-        eng = self.prefix_engine
-        rep.kv_pts += 1                   # the tick is one logical step
-        self.prefix_stats["decode_ticks"] += 1
-        self._renew_decode_leases(rep, act)
-        bt = self.prefix_block_tokens
-        page_rows = np.stack([s.page_row for s in act])
-        lengths = np.asarray([s.length for s in act], np.int32)
-        tokens = np.asarray([[s.emitted[-1]] for s in act], np.int32)
-        params = rep.params()             # weight lease check per tick
-        dev = self.device
-        pool, logits = decode_step_paged(
-            self.cfg, params, eng.kv_rows_view(),
-            torch.as_tensor(page_rows, device=dev),
-            torch.as_tensor(lengths, device=dev),
-            torch.as_tensor(tokens, device=dev),
-            chunk=self.prefix_block_tokens)
-        eng.set_kv_rows(pool, tokens_appended=len(act))
-        self.prefix_stats["decode_block_reads"] += int(
-            sum(-(-(int(n) + 1) // bt) for n in lengths))
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-        if self.trace is not None:
-            self.trace.append({
-                "ev": "tick", "tick": tick, "rep": rep.name,
-                "rids": [s.req.rid for s in act],
-                "lengths": lengths.copy(), "tokens": tokens.copy(),
-                "logits": logits.float().cpu().numpy().copy()})
-        done = []
-        for s, t in zip(act, nxt):
-            s.length += 1
-            s.emitted.append(int(t))
-            if s.finished:
-                done.append(s)
-        for s in done:
-            self._finalize(s)
-            act.remove(s)
+        with obs.span("decode.step"):
+            eng = self.prefix_engine
+            rep.kv_pts += 1               # the tick is one logical step
+            self.prefix_stats["decode_ticks"] += 1
+            with obs.span("decode.renew"):
+                self._renew_decode_leases(rep, act)
+            bt = self.prefix_block_tokens
+            with obs.span("decode.prep"):
+                page_rows = np.stack([s.page_row for s in act])
+                lengths = np.asarray([s.length for s in act], np.int32)
+                tokens = np.asarray([[s.emitted[-1]] for s in act], np.int32)
+                params = rep.params()     # weight lease check per tick
+                dev = self.device
+                page_rows_d = obs.to_device(page_rows, dev,
+                                            "decode.page_rows")
+                lengths_d = obs.to_device(lengths, dev, "decode.lengths")
+                tokens_d = obs.to_device(tokens, dev, "decode.tokens_in")
+            with obs.span("decode.forward"):
+                pool, logits = decode_step_paged(
+                    self.cfg, params, eng.kv_rows_view(), page_rows_d,
+                    lengths_d, tokens_d, chunk=self.prefix_block_tokens)
+                eng.set_kv_rows(pool, tokens_appended=len(act))
+                self.prefix_stats["decode_block_reads"] += int(
+                    sum(-(-(int(n) + 1) // bt) for n in lengths))
+                picks = torch.argmax(logits[:, -1], dim=-1)
+            nxt = obs.to_host(picks, "decode.tokens").numpy()
+            if obs.on:
+                obs.emit_many([s.req.rid for s in act])
+            if self.trace is not None:
+                self.trace.append({
+                    "ev": "tick", "tick": tick, "rep": rep.name,
+                    "rids": [s.req.rid for s in act],
+                    "lengths": lengths.copy(), "tokens": tokens.copy(),
+                    "logits": logits.float().cpu().numpy().copy()})
+            with obs.span("decode.finish"):
+                done = []
+                for s, t in zip(act, nxt):
+                    s.length += 1
+                    s.emitted.append(int(t))
+                    if s.finished:
+                        done.append(s)
+                for s in done:
+                    self._finalize(s)
+                    act.remove(s)
 
     def _mk_queues(self, requests: List[Request]) -> List[deque]:
         """Arrival-order groups of ``n_replicas`` requests affined to
@@ -1073,12 +1101,13 @@ class ServingCluster:
         """One scheduler tick: admissions then decode steps on every
         replica, then the rebase guard.  The multi-host coordinator calls
         this per host to run K clusters in lockstep."""
-        for r, rep in enumerate(self.replicas):
-            self._admit(r, rep, queues[r], self._active[r], tick)
-        for r, rep in enumerate(self.replicas):
-            if self._active[r]:
-                self._decode_tick(rep, self._active[r], tick)
-        self._maybe_rebase()
+        with obs.span("tick"):
+            for r, rep in enumerate(self.replicas):
+                self._admit(r, rep, queues[r], self._active[r], tick)
+            for r, rep in enumerate(self.replicas):
+                if self._active[r]:
+                    self._decode_tick(rep, self._active[r], tick)
+            self._maybe_rebase()
 
     def _run_paged(self, requests: List[Request]) -> None:
         queues = self._mk_queues(requests)
